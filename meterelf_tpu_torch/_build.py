@@ -1,0 +1,124 @@
+"""Build the port's CUDA kernels and load them.
+
+All of ``csrc/*.cu`` is compiled by nvcc into one shared library with a
+plain C interface (``csrc/meterelf_kernels.h``), at first use, into
+``_build/`` beside this file, and loaded with ctypes. The library's name
+carries a hash of the sources and flags, so an edited source builds
+anew. Nothing here runs at import time, and nothing falls back: a
+missing nvcc or a failed build raises.
+
+``--fmad=false`` keeps nvcc from contracting a*b+c into one FMA (the
+exact colour and score chains are spelled with round-to-nearest
+intrinsics as well); division stays IEEE (``-prec-div=true`` is nvcc's
+default, and ``--use_fast_math`` is never passed).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Any, List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every exported function (csrc/meterelf_kernels.h)
+_SIGNATURES = {
+    "meterelf_frontend": [_P, _I, _I, _I, _P, _I, _I, _F, _F,
+                          _P, _P, _P, _P],
+    "meterelf_frontend_smem_bytes": [_I, _I, _I, _I],
+    "meterelf_windows": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
+    "meterelf_ccl": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "meterelf_stats": [_P, _I, _P, _P, _P],
+}
+
+
+class KernelLibrary:
+    """The loaded library plus how it was built."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, seconds: float,
+                 log: str) -> None:
+        self.lib = lib
+        self.path = path
+        self.build_seconds = seconds  # 0.0 when an up-to-date .so existed
+        self.build_log = log          # nvcc/ptxas output of the build
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self.lib, name)
+
+
+_LOCK = threading.Lock()
+_LOADED: List[KernelLibrary] = []
+
+
+def sources() -> List[Path]:
+    """The kernel sources the library is built from."""
+    return sorted(p for p in CSRC.iterdir()
+                  if p.suffix in (".cu", ".cuh", ".h"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+        "cannot be built on this machine")
+
+
+def _build(target: Path) -> str:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cus = [str(p) for p in sources() if p.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(
+            "nvcc failed building the CUDA kernels:\n" + " ".join(cmd)
+            + "\n" + r.stdout[-4000:] + r.stderr[-8000:])
+    os.replace(tmp, target)
+    return r.stdout + r.stderr
+
+
+def library() -> KernelLibrary:
+    """The kernel library, built from ``csrc/`` on first use in this
+    process (or loaded from ``_build/`` when a build of the same sources
+    is there)."""
+    with _LOCK:
+        if not _LOADED:
+            target = BUILD_DIR / f"libmeterelf_kernels_{_digest()}.so"
+            log: Optional[str] = None
+            t0 = time.perf_counter()
+            if not target.exists():
+                log = _build(target)
+            seconds = time.perf_counter() - t0 if log is not None else 0.0
+            lib = ctypes.CDLL(str(target))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LOADED.append(KernelLibrary(lib, target, seconds, log or ""))
+        return _LOADED[0]

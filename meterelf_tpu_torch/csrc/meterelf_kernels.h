@@ -1,0 +1,56 @@
+// C interface of the port's CUDA kernels (one shared library, loaded
+// with ctypes by meterelf_tpu_torch/_build.py).
+//
+// Every function launches its kernel on `stream` (a cudaStream_t passed
+// as void*), does not synchronise, allocates nothing, and returns the
+// cudaError_t of the launch (0 = launched). Pointers are device
+// pointers unless a comment says otherwise; arrays are C-contiguous.
+#pragma once
+#include <stdint.h>
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+// K1: exact cv2 lightness + TM_CCOEFF as an exact int8 correlation,
+// first-max row-major argmax. packed [B, H, W] i32 (b | g<<8 | r<<16),
+// tmpl [th, tw] u8. c1 = 128 - tmean (f32), c0 = the f32 residual of
+// the f32-rounded template mean. Out: max_val [B] f32, mx/my [B] i32.
+int meterelf_frontend(const int32_t* packed, int B, int H, int W,
+                      const uint8_t* tmpl, int th, int tw,
+                      float c1, float c0,
+                      float* max_val, int32_t* mx, int32_t* my,
+                      void* stream);
+
+// Shared memory the frontend kernel needs for one image (bytes); the
+// wrapper refuses geometries above the card's per-block limit.
+int meterelf_frontend_smem_bytes(int H, int W, int th, int tw);
+
+// K2: the D dial windows of each image at (mx + ox_d, my + oy_d):
+// exact HLS_FULL + hue shift, 5x5 center sample, inRange, 3x3 close.
+// geom (HOST pointer) holds 7 ints per dial: ox, oy, cx, cy, cr_h, cr_l,
+// cr_s. disk [D, 64, 64] u8 (0/1). Out: bits [B, D, 64, 64] i32 =
+// masked | disk<<1 | closed<<2 | raw<<3.
+int meterelf_windows(const int32_t* packed, int B, int H, int W,
+                     const int32_t* mx, const int32_t* my,
+                     const int32_t* geom, int D, const uint8_t* disk,
+                     int hue_shift, int32_t* bits, void* stream);
+
+// K3: per 64x64 window, 8-connected labels, the 4-connected outside
+// flood, the hole-ownership fill and the boundary bit, under pass caps.
+// bits [K, 64, 64] i32 as K2 writes them. Out: okey3 [K, 64, 64] i32 =
+// owner*8 + closed*4 + masked*2 + boundary (owner 4096 off support),
+// converged [K] u8.
+int meterelf_ccl(const int32_t* bits, int K, int k_label, int k_outside,
+                 int k_fill, int32_t* okey3, uint8_t* converged,
+                 void* stream);
+
+// K4: per window, marching-squares areas and boundary counts per owner;
+// keymax = max(area2*4096 + owner) over owners with a boundary pixel,
+// else -1; has_any = any masked pixel. okey3 [K, 4096] i32.
+int meterelf_stats(const int32_t* okey3, int K, int32_t* keymax,
+                   uint8_t* has_any, void* stream);
+
+#ifdef __cplusplus
+}
+#endif

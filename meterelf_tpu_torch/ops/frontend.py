@@ -1,0 +1,139 @@
+"""K1 `frontend`: dial-cluster localisation (template match + argmax).
+
+Port of meterelf_tpu/ops/pallas_frontend.py frontend_pallas with
+ops/template.py locate. Per image: the exact cv2 lightness L of the
+packed-BGR crop, the TM_CCOEFF score of the template at every valid
+offset, and the first maximum in row-major order (cv2.minMaxLoc):
+-> (max_val f32, mx i32, my i32).
+
+The score is the TPU kernel's exact decomposition (its module
+docstring, item 3): corr8 = sum (L-128)(T-128) and box' = sum (L-128)
+are exact integers, and
+
+    score = (f32(corr8) + c1 * f32(box')) + c0
+
+with c1 = 128 - tmean and c0 the residual of the f32-rounded template
+mean, both from ``score_constants`` in f64 on the host. No superwindow
+is produced: the windows stage reads the crop at (mx, my) directly.
+
+``frontend`` is the wrapper: on a CPU tensor it runs ``frontend_plain``;
+on a CUDA tensor it launches the CUDA kernel (csrc/frontend.cu) or
+raises.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from .color import lightness_from_planes, unpack_planes
+from .launch import check_cuda, raise_on_error, stream_of
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+
+
+def score_constants(template_u8: np.ndarray) -> Tuple[float, float]:
+    """(c1, c0) as f32 values: c1 = 128 - tmean, c0 = the f64-computed
+    residual 128*(Tsum - N*tmean) of the f32-rounded template mean
+    tmean = f32(Tsum) / f32(N) (pallas_frontend._c1_for)."""
+    t = np.asarray(template_u8)
+    n = t.shape[0] * t.shape[1]
+    tsum = int(t.astype(np.int64).sum())
+    tmean = np.float32(tsum) / np.float32(n)
+    c1 = np.float32(128.0) - tmean
+    c0 = np.float32(np.float64(128.0) * (np.float64(tsum)
+                                         - np.float64(n) * np.float64(tmean)))
+    return float(c1), float(c0)
+
+
+def _corr8(lp: torch.Tensor, tp: torch.Tensor) -> torch.Tensor:
+    """Exact sum_{r,c} lp[y+r, x+c] * tp[r, c] for int32 operands in
+    [-128, 127] -> int32 [B, oh, ow].
+
+    Row correlations R[y', x, r] = sum_c lp[y', x+c] tp[r, c] go through
+    an f32 matrix product: every partial sum is an integer below
+    tw * 128^2 < 2^24, so f32 holds it exactly in any order (no TF32 on
+    the card). The sum over template rows then runs in int32."""
+    B, H, W = lp.shape
+    th, tw = tp.shape
+    oh, ow = H - th + 1, W - tw + 1
+    if lp.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    tf = tp.to(torch.float32).t()
+    out = torch.empty((B, oh, ow), dtype=torch.int32, device=lp.device)
+    chunk = max(1, (1 << 26) // (H * ow * tw))
+    for b0 in range(0, B, chunk):
+        u = lp[b0:b0 + chunk].to(torch.float32).unfold(2, tw, 1)
+        rows = torch.matmul(u, tf).to(torch.int32)    # [b, H, ow, th]
+        acc = torch.zeros((rows.shape[0], oh, ow), dtype=torch.int32,
+                          device=lp.device)
+        for r in range(th):
+            acc += rows[:, r:r + oh, :, r]
+        out[b0:b0 + chunk] = acc
+    return out
+
+
+def frontend_plain(packed: torch.Tensor, template_u8: torch.Tensor,
+                   c1: float, c0: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch frontend: [B, H, W] i32 packed crops, [th, tw] u8
+    template -> (max_val f32 [B], mx i32 [B], my i32 [B])."""
+    B, H, W = packed.shape
+    th, tw = template_u8.shape
+    oh, ow = H - th + 1, W - tw + 1
+    lp = lightness_from_planes(*unpack_planes(packed)) - 128
+    tp = template_u8.to(torch.int32) - 128
+    corr = _corr8(lp, tp)
+    ii = F.pad(lp.to(torch.int64).cumsum(1).cumsum(2), (1, 0, 1, 0))
+    box = (ii[:, th:, tw:] - ii[:, :-th, tw:] - ii[:, th:, :-tw]
+           + ii[:, :-th, :-tw])
+    f32 = torch.float32
+    c1t = torch.tensor(c1, dtype=f32, device=packed.device)
+    c0t = torch.tensor(c0, dtype=f32, device=packed.device)
+    scores = (corr.to(f32) + c1t * box.to(f32)) + c0t
+    flat = scores.reshape(B, oh * ow)
+    idx = torch.argmax(flat, dim=1)          # first maximum, row-major
+    max_val = flat.gather(1, idx[:, None])[:, 0]
+    return (max_val, (idx % ow).to(torch.int32),
+            (idx // ow).to(torch.int32))
+
+
+def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
+             c1: float, c0: float
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 wrapper -> (max_val f32 [B], mx i32 [B], my i32 [B])."""
+    if packed.device.type == "cpu":
+        return frontend_plain(packed, template_u8, c1, c0)
+    check_cuda("frontend", packed, torch.int32, 3)
+    check_cuda("frontend", template_u8, torch.uint8, 2, like=packed)
+    B, H, W = packed.shape
+    th, tw = template_u8.shape
+    if not (1 <= th <= H and 1 <= tw <= W):
+        raise ValueError(f"template {(th, tw)} does not fit crop {(H, W)}")
+    lib = _build.library()
+    smem = lib.meterelf_frontend_smem_bytes(H, W, th, tw)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"crop {(H, W)} with template {(th, tw)} needs {smem} B of "
+            f"shared memory, above the {SMEM_LIMIT} B a block may use")
+    dev = packed.device
+    max_val = torch.empty(B, dtype=torch.float32, device=dev)
+    mx = torch.empty(B, dtype=torch.int32, device=dev)
+    my = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return max_val, mx, my
+    with torch.cuda.device(dev):
+        rc = lib.meterelf_frontend(
+            packed.data_ptr(), B, H, W, template_u8.data_ptr(), th, tw,
+            c1, c0, max_val.data_ptr(), mx.data_ptr(), my.data_ptr(),
+            stream_of(dev))
+    raise_on_error("frontend", rc)
+    frontend.launches += 1
+    return max_val, mx, my
+
+
+frontend.launches = 0  # type: ignore[attr-defined]

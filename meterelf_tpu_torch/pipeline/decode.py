@@ -1,0 +1,200 @@
+"""The batched decode path: packed-BGR meter crops in, per-image readings
+and error codes out.
+
+Port of meterelf_tpu/pipeline/decode.py ``_decode_batch`` on its
+quad-kernel branch (the TPU's main path) and of ``MeterDecoder``. Per
+batch, on one device:
+
+  1. K1 frontend: exact lightness, template match, first-max location
+     (ops/frontend.py);
+  2. K2 windows: exact HLS, 5x5 color sample, inRange, 3x3 close per dial
+     window at the match location (ops/windows.py);
+  3. K3 ccl: component labels, outside flood, hole fill -> okey3
+     (ops/ccl.py);
+  4. K4 stats: largest top-level contour per window (ops/stats.py);
+  5. f64 angle statistics and the carry-corrected value (ops/angles.py);
+  6. the reference's error priority (decode.py:440-467).
+
+On a CUDA device every kernel stage launches its CUDA kernel; on the CPU
+the same code runs each kernel's plain torch version.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..errors import ErrCode
+from ..params import Params, to_device
+from ..ops.angles import assemble_value, read_dials
+from ..ops.ccl import ccl
+from ..ops.components import RESCUE_CAPS
+from ..ops.frontend import frontend, score_constants
+from ..ops.stats import stats
+from ..ops.windows import windows
+
+W = 64
+
+
+class BatchResult(NamedTuple):
+    err: Any              # [B] i32 ErrCode
+    first_bad_dial: Any   # [B] i32 (valid when err == NEEDLE_CONTOURS)
+    unreadable_bits: Any  # [B] i32 bitmask (valid when err == DIAL_ANGLE)
+    match_val: Any        # [B] f32
+    match_x: Any          # [B] i32
+    match_y: Any          # [B] i32
+    dial_pos: Any         # [B, D] f64
+    readable: Any         # [B, D] bool
+    value: Any            # [B] f64
+    converged: Any        # [B] bool: CCL propagation fixpoint check
+
+
+class MeterDecoder:
+    """Batched decoder for one camera configuration on one torch device.
+
+    Duck-types meterelf_tpu.pipeline.decode.MeterDecoder: ``__call__``
+    returns a BatchResult of device tensors (asynchronously on CUDA),
+    ``decode_numpy`` and ``rescue_numpy`` return numpy fields, and
+    ``feed_pad_hw`` is the (H, W) packed crops should have (the true
+    crop: the TPU's 256x256 staging pad has no use here). A CUDA device
+    without a GPU raises; nothing falls back to the CPU.
+    """
+
+    def __init__(self, params: Params, *, device: Any = "cuda") -> None:
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "MeterDecoder(device='cuda'): no CUDA device is available")
+        self.params = params
+        host = params.arrays()
+        self.param_arrays = to_device(host, self.device)
+        h, w = params.meter_rect.height, params.meter_rect.width
+        self.crop_shape = (h, w, 3)
+        self.feed_pad_hw = (h, w)
+        self.score_c1, self.score_c0 = score_constants(host.template_u8)
+        self._threshold = float(host.threshold)
+        self.hue_shift = int(host.hue_shift)
+        # per dial (ox, oy, cx, cy, cr_h, cr_l, cr_s): ops/windows.py geom
+        self.geom = tuple(
+            (ox, oy, cx, cy, *(int(c) for c in cr))
+            for (ox, oy), (cx, cy), cr in zip(
+                self.param_arrays.win_origin, self.param_arrays.centers_int,
+                np.asarray(host.color_range)))
+        self.disk = self.param_arrays.mask_full.to(torch.uint8)
+
+    def _packed(self, crops: Any) -> torch.Tensor:
+        x = torch.as_tensor(crops).to(self.device)
+        h, w = self.feed_pad_hw
+        if x.dim() == 4:          # [B, H, W, 3] u8 BGR -> packed i32
+            c = x.to(torch.int32)
+            x = c[..., 0] | (c[..., 1] << 8) | (c[..., 2] << 16)
+        if x.dim() != 3 or x.shape[1] < h or x.shape[2] < w:
+            raise ValueError(f"crops of shape {tuple(x.shape)}: expected "
+                             f"[B, {h}, {w}] packed i32 or [B, {h}, {w}, 3]")
+        return x[:, :h, :w].to(torch.int32).contiguous()
+
+    def _load_ok(self, load_ok: Any, B: int) -> torch.Tensor:
+        if load_ok is None:
+            return torch.ones(B, dtype=torch.bool, device=self.device)
+        return torch.as_tensor(load_ok).to(self.device, torch.bool)
+
+    def decode(self, crops: Any, load_ok: Any = None,
+               caps: Optional[Sequence[int]] = None) -> BatchResult:
+        """One batch under the given CCL caps (default caps when None),
+        as device tensors."""
+        packed = self._packed(crops)
+        B = packed.shape[0]
+        D = len(self.geom)
+        pa = self.param_arrays
+
+        max_val, mx, my = frontend(packed, pa.template_u8, self.score_c1,
+                                   self.score_c0)
+        bits = windows(packed, mx, my, self.geom, self.disk,
+                       self.hue_shift)
+        okey3, conv = ccl(bits.reshape(B * D, W, W), caps)
+        keymax, has_any = stats(okey3)
+        positions, readable = read_dials(
+            okey3.reshape(B, D, W * W), keymax.reshape(B, D), pa)
+        if D == 4:
+            value = assemble_value(positions, pa.value_perm)
+        else:
+            value = torch.zeros(B, dtype=positions.dtype, device=self.device)
+        err, first_bad, unreadable_bits = _error_codes(
+            self._load_ok(load_ok, B), max_val >= self._threshold,
+            has_any.reshape(B, D), readable)
+        return BatchResult(
+            err=err,
+            first_bad_dial=first_bad,
+            unreadable_bits=unreadable_bits,
+            match_val=max_val,
+            match_x=mx,
+            match_y=my,
+            dial_pos=positions,
+            readable=readable,
+            value=value,
+            converged=conv.reshape(B, D).all(dim=1),
+        )
+
+    def __call__(self, crops: Any, load_ok: Any = None) -> BatchResult:
+        return self.decode(crops, load_ok)
+
+    def decode_numpy(self, crops: Any,
+                     load_ok: Optional[np.ndarray] = None) -> BatchResult:
+        """Decode and pull results to host numpy. Rows whose component
+        propagation did not converge under the default caps are decoded
+        again under RESCUE_CAPS (see rescue_numpy)."""
+        res = _to_numpy(self(crops, load_ok))
+        return self.rescue_numpy(crops, res, load_ok)
+
+    def rescue_numpy(self, crops: Any, res: BatchResult,
+                     load_ok: Optional[np.ndarray] = None) -> BatchResult:
+        """Replace the non-converged rows of a host BatchResult for
+        ``crops`` by a decode under RESCUE_CAPS; raise if rows are still
+        non-converged then (no mislabeled reading is ever returned)."""
+        if bool(np.asarray(res.converged).all()):
+            return res
+        res2 = _to_numpy(self.decode(crops, load_ok, caps=RESCUE_CAPS))
+        if not bool(res2.converged.all()):
+            bad = np.nonzero(~res2.converged)[0].tolist()
+            raise RuntimeError(
+                "component propagation failed to converge even under "
+                f"rescue caps for batch rows {bad}; refusing to emit "
+                "potentially mislabeled readings")
+        take = np.asarray(res.converged)
+        return BatchResult(*[
+            np.where(take.reshape(take.shape + (1,) * (a.ndim - 1)), a, b)
+            for a, b in zip((np.asarray(v) for v in res), res2)])
+
+
+def _to_numpy(res: BatchResult) -> BatchResult:
+    return BatchResult(*[v.cpu().numpy() for v in res])
+
+
+def _error_codes(load_ok: torch.Tensor, match_ok: torch.Tensor,
+                 has_any: torch.Tensor, readable: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's raise order (decode.py:440-467): load failure,
+    then template match below threshold, then the first dial with no
+    needle contours, then any unreadable dial."""
+    i32 = torch.int32
+    D = has_any.shape[1]
+    no_contours = ~has_any
+    first_bad = torch.argmax(no_contours.to(i32), dim=1).to(i32)
+    unreadable = ~readable
+    weights = torch.tensor([1 << d for d in range(D)], dtype=i32,
+                           device=readable.device)
+    bits = (unreadable.to(i32) * weights).sum(dim=1).to(i32)
+
+    def code(c: ErrCode) -> torch.Tensor:
+        return torch.tensor(int(c), dtype=i32, device=readable.device)
+
+    err = torch.where(
+        ~load_ok, code(ErrCode.LOAD),
+        torch.where(
+            ~match_ok, code(ErrCode.DIALS_NOT_FOUND),
+            torch.where(
+                no_contours.any(dim=1), code(ErrCode.NEEDLE_CONTOURS),
+                torch.where(unreadable.any(dim=1), code(ErrCode.DIAL_ANGLE),
+                            code(ErrCode.OK)))))
+    return err, first_bad, bits

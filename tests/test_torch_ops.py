@@ -1,0 +1,299 @@
+"""The PyTorch port's kernel modules (plain versions, as they run on the
+CPU) against the JAX package: frontend, colour, windows, stats, angles.
+The CCL module is in test_torch_ccl.py.
+
+Same numpy inputs from a seed go to both; Pallas kernels run in
+interpret mode, as tests/test_ops.py runs them on the CPU."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from meterelf_tpu.ops import angles as j_angles
+from meterelf_tpu.ops import color as j_color
+from meterelf_tpu.ops import components as j_comp
+from meterelf_tpu.ops import pallas_frontend as j_fe
+from meterelf_tpu.ops import pallas_stats as j_stats
+from meterelf_tpu.ops import pallas_windows as j_win
+from meterelf_tpu.ops import template as j_template
+from meterelf_tpu_torch import params as t_params
+from meterelf_tpu_torch import synthetic as t_syn
+from meterelf_tpu_torch.ops import angles as t_angles
+from meterelf_tpu_torch.ops import color as t_color
+from meterelf_tpu_torch.ops import frontend as t_fe
+from meterelf_tpu_torch.ops import stats as t_stats
+from meterelf_tpu_torch.ops import windows as t_win
+from meterelf_tpu_torch.types import Rect
+
+torch.set_num_threads(2)
+
+W = 64
+(_X0, _Y0) = t_syn.METER_RECT.top_left
+FRONTEND_CAMERAS = {
+    "default": t_syn.DEFAULT_CAMERA,
+    "alt": t_syn.ALT_CAMERA,
+    # the second shipped camera's crop shape: 220x135, 188x119 template
+    "camera2shape": t_syn.SyntheticCamera(
+        meter_rect=Rect((_X0, _Y0), (_X0 + 220, _Y0 + 135))),
+}
+
+
+def _pack(crops):
+    c = crops.astype(np.int64)
+    return (c[..., 0] | (c[..., 1] << 8) | (c[..., 2] << 16)).astype(np.int32)
+
+
+def _dequad(x):
+    """[B, 64, 256] quad layout -> [B, 4, 64, 64] per window."""
+    B = x.shape[0]
+    return np.asarray(x).reshape(B, W, 4, W).transpose(0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------- K1 --
+
+@pytest.mark.parametrize("cam", sorted(FRONTEND_CAMERAS))
+def test_frontend_plain_matches_jax_and_exact_reference(cam):
+    """mx/my exactly as the JAX CPU decoder's scorer
+    (match_template_scores_matmul + locate), max_val within its rtol
+    1e-4 (assert_results_equal's bound: that scorer rounds in f32); and
+    mx/my/max_val bitwise against the int64 numpy reference of
+    tests/test_ops.py (the TPU kernel's exact formulation)."""
+    camera = FRONTEND_CAMERAS[cam]
+    crops = camera.render_crops([[1.0, 3.5, 7.2, 9.9], [4.4, 6.6, 8.8, 1.1]])
+    tmpl = camera.make_template()
+    packed = _pack(crops)
+    c1, c0 = t_fe.score_constants(tmpl)
+    mv, mx, my = (x.numpy() for x in t_fe.frontend(
+        torch.as_tensor(packed), torch.as_tensor(tmpl), c1, c0))
+
+    tsum = int(tmpl.astype(np.int64).sum())
+    tmean = np.float32(tsum) / np.float32(tmpl.size)
+    L = np.asarray(j_color.lightness_from_planes(
+        jnp.asarray(crops[..., 0]), jnp.asarray(crops[..., 1]),
+        jnp.asarray(crops[..., 2])))
+    scores = j_template.match_template_scores_matmul(
+        jnp.asarray(L.astype(np.float32)), jnp.asarray(tmpl), tmean)
+    j_mv, j_mx, j_my = (np.asarray(x) for x in j_template.locate(scores))
+    np.testing.assert_array_equal(mx, j_mx)
+    np.testing.assert_array_equal(my, j_my)
+    assert np.allclose(mv, j_mv, rtol=1e-4)
+
+    # exact reference (tests/test_ops.py:310-332)
+    th, tw = tmpl.shape
+    oh, ow = crops.shape[1] - th + 1, crops.shape[2] - tw + 1
+    t64 = tmpl.astype(np.int64) - 128
+    c1n = np.float32(np.float32(128.0) - tmean)
+    c0n = np.float32(128.0 * (np.float64(tsum)
+                              - tmpl.size * np.float64(tmean)))
+    assert (np.float32(c1), np.float32(c0)) == (c1n, c0n)
+    for b in range(len(crops)):
+        lp = L[b].astype(np.int64) - 128
+        view = np.lib.stride_tricks.sliding_window_view(lp, (th, tw))
+        corr = np.einsum("yxij,ij->yx", view[:oh, :ow], t64)
+        box = np.einsum("yxij->yx", view[:oh, :ow])
+        ref = (corr.astype(np.float32)
+               + (c1n * box.astype(np.float32)).astype(np.float32) + c0n)
+        by, bx = np.unravel_index(np.argmax(ref), ref.shape)
+        assert (int(my[b]), int(mx[b])) == (by, bx)
+        assert np.float32(mv[b]).tobytes() == ref[by, bx].tobytes()
+
+
+def test_frontend_first_max_tie_break():
+    """A flat crop scores the same everywhere: the first offset in
+    row-major order wins (cv2.minMaxLoc)."""
+    tmpl = t_syn.DEFAULT_CAMERA.make_template()
+    packed = np.full((2, 250, 250), 0x808080, np.int32)
+    c1, c0 = t_fe.score_constants(tmpl)
+    mv, mx, my = t_fe.frontend(torch.as_tensor(packed),
+                               torch.as_tensor(tmpl), c1, c0)
+    assert mx.tolist() == [0, 0] and my.tolist() == [0, 0]
+    assert mv.dtype == torch.float32 and mx.dtype == torch.int32
+
+
+# ----------------------------------------------------------- colour --
+
+def _hls_inputs():
+    rng = np.random.default_rng(2024)
+    rand = rng.integers(0, 1 << 24, 1 << 20, dtype=np.int64)
+    v = np.arange(1 << 24, dtype=np.int64)
+    ch = [(v >> s) & 255 for s in (0, 8, 16)]
+    edge = v[np.logical_or.reduce([(c == 0) | (c == 255) for c in ch])]
+    return np.concatenate([rand, edge])
+
+
+def test_hls_and_lightness_equal_jax():
+    """Plain HLS (f32 IEEE division) equals color.bgr_planes_to_hls (the
+    f64-division path) and lightness_from_planes exactly: 2^20 seeded
+    BGR triples plus every triple with a channel at 0 or 255."""
+    v = _hls_inputs()
+    planes = [((v >> s) & 255) for s in (0, 8, 16)]
+    u8 = [p.astype(np.uint8) for p in planes]
+    tp = [torch.as_tensor(p.astype(np.int32)) for p in planes]
+    for shift in (128, 0, 250):
+        j = jax.jit(functools.partial(j_color.bgr_planes_to_hls,
+                                      hue_shift=shift))(*u8)
+        t = t_color.bgr_planes_to_hls(*tp, shift)
+        for a, b in zip(j, t):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    jl = jax.jit(j_color.lightness_from_planes)(*u8)
+    np.testing.assert_array_equal(
+        np.asarray(jl), t_color.lightness_from_planes(*tp).numpy())
+
+
+# ---------------------------------------------------------------- K2 --
+
+def _window_case(seed):
+    """Crops mixing a rendered meter with speckle of grey pixels
+    (vmax == vmin), near-red hues (wrap under the hue shift) and random
+    colours, plus random valid match offsets."""
+    rng = np.random.default_rng(seed)
+    cam = t_syn.DEFAULT_CAMERA
+    crops = cam.render_crops(rng.uniform(0, 10, (4, 4)).tolist())
+    B, H, Wd, _ = crops.shape
+    grey = rng.integers(0, 256, (B, H, Wd, 1)).repeat(3, axis=3)
+    red = np.stack([rng.integers(0, 60, (B, H, Wd)),
+                    rng.integers(0, 60, (B, H, Wd)),
+                    rng.integers(150, 256, (B, H, Wd))], axis=-1)
+    rand = rng.integers(0, 256, (B, H, Wd, 3))
+    pick = rng.integers(0, 8, (B, H, Wd, 1))
+    crops = np.where(pick == 0, grey, np.where(
+        pick == 1, red, np.where(pick == 2, rand, crops))).astype(np.uint8)
+    mx = rng.integers(0, Wd - 188 + 1, B).astype(np.int32)
+    my = rng.integers(0, H - 119 + 1, B).astype(np.int32)
+    return crops, mx, my
+
+
+@pytest.mark.parametrize("hue_shift", [128, 0, 201])
+def test_windows_plain_matches_pallas_interpret(hue_shift):
+    """Plain window bits == pallas_windows.window_bits_quads
+    (interpret=True), dequadded; the superwindow is the crop rotated to
+    the match offset as in tests/test_ops.py:338-340."""
+    pa = t_syn.DEFAULT_CAMERA.make_params().arrays()
+    origins = tuple((int(x), int(y)) for x, y in pa.win_origin)
+    centers = tuple((int(x), int(y)) for x, y in pa.centers_int)
+    crops, mx, my = _window_case(hue_shift)
+    packed = _pack(crops)
+    sw = np.zeros((len(crops), j_fe.SW_H, j_fe.SW_W), np.int32)
+    for b in range(len(crops)):
+        pad = np.zeros((j_fe.H_PAD, j_fe.W_PAD), np.int32)
+        pad[:250, :250] = packed[b]
+        sw[b] = np.roll(np.roll(pad, -my[b], 0), -mx[b], 1)[
+            :j_fe.SW_H, :j_fe.SW_W]
+    disk_quad = np.concatenate(
+        [pa.mask_full[i].astype(np.int32) for i in range(4)], axis=1)
+    want = _dequad(jax.jit(functools.partial(
+        j_win.window_bits_quads, origins=origins, centers=centers,
+        interpret=True))(jnp.asarray(sw), jnp.asarray(disk_quad),
+                         jnp.asarray(pa.color_range), hue_shift))
+
+    geom = tuple((ox, oy, cx, cy, *map(int, cr)) for (ox, oy), (cx, cy), cr
+                 in zip(origins, centers, pa.color_range))
+    got = t_win.windows(torch.as_tensor(packed), torch.as_tensor(mx),
+                        torch.as_tensor(my), geom,
+                        torch.as_tensor(pa.mask_full.astype(np.uint8)),
+                        hue_shift)
+    assert got.shape == (len(crops), 4, W, W) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want & 1).any() and ((want >> 3) & 1).any()
+
+
+# ---------------------------------------------------------------- K4 --
+
+def _okey3_case(density, seed, B=9):
+    """okey3 windows from the JAX reference propagation (tests/test_ops.py
+    572-591 inputs, packed with the closed bit)."""
+    rng = np.random.default_rng(seed)
+    K = 4 * B
+    yy, xx = np.mgrid[:W, :W]
+    disk = (yy - 32) ** 2 + (xx - 32) ** 2 <= 23 ** 2
+    closed = rng.random((K, W, W)) < density
+    for k in range(K // 2):
+        cy, cx = rng.integers(16, 48, 2)
+        closed[k] |= ((yy - cy) ** 2 + (xx - cx) ** 2) <= 64
+    masked = closed & disk
+    okey, conv = j_comp._propagate_xla(
+        jnp.asarray(masked), jnp.asarray(np.broadcast_to(disk, masked.shape)))
+    okey = np.asarray(okey)
+    okey3 = ((okey >> 2) * 8 + closed.astype(np.int32) * 4
+             + (okey & 3)).astype(np.int32)
+    return okey3, np.asarray(conv)
+
+
+@pytest.mark.parametrize("density", [0.08, 0.3, 0.55])
+def test_stats_plain_matches_pallas_interpret(density):
+    okey3, _ = _okey3_case(density, int(density * 7919))
+    km, ha = jax.jit(functools.partial(
+        j_stats.stats_select_fused, interpret=True))(jnp.asarray(okey3))
+    t_km, t_ha = t_stats.stats(torch.as_tensor(okey3))
+    np.testing.assert_array_equal(t_km.numpy(), np.asarray(km))
+    np.testing.assert_array_equal(t_ha.numpy(), np.asarray(ha))
+    assert (np.asarray(km) >= 0).any()
+
+
+# ------------------------------------------------------------ angles --
+
+# f64 sums (angles.py: momentum, weighted mean) run in another order in
+# torch than in XLA; positions may differ in the last bits only
+ANGLE_TOL = 1e-9
+
+
+def test_read_dials_and_value_match_jax():
+    """read_dials == angles.read_dial_from_okey per window (readable
+    exact, position within ANGLE_TOL), and assemble_value exact on the
+    same positions, including the carry boundaries."""
+    params = t_syn.DEFAULT_CAMERA.make_params()
+    host = params.arrays()
+    pa = t_params.to_device(host, "cpu")
+    rng = np.random.default_rng(42)
+    B, D = 6, 4
+    yy, xx = np.mgrid[:W, :W]
+    okey3 = np.zeros((B, D, W, W), np.int32)
+    for b in range(B):
+        closed = rng.random((D, W, W)) < (0.1 if b < 5 else 0.0)
+        for d in range(D if b < 5 else 0):
+            cx, cy = (int(v) for v in host.centers_int[d])
+            ang = rng.uniform(0, 2 * np.pi)
+            for t in np.linspace(0, 18, 40):
+                px = int(round(cx + t * np.sin(ang)))
+                py = int(round(cy - t * np.cos(ang)))
+                closed[d, max(py - 1, 0):py + 2, max(px - 1, 0):px + 2] = True
+        masked = closed & host.mask_full
+        okey, _ = j_comp._propagate_xla(jnp.asarray(masked),
+                                        jnp.asarray(host.mask_full))
+        okey = np.asarray(okey)
+        okey3[b] = (okey >> 2) * 8 + closed * 4 + (okey & 3)
+    flat = okey3.reshape(B * D, W, W)
+    km, _ = t_stats.stats(torch.as_tensor(flat))
+    km = km.numpy().reshape(B, D)
+
+    pos, readable = t_angles.read_dials(
+        torch.as_tensor(okey3.reshape(B, D, W * W)), torch.as_tensor(km), pa)
+    read = jax.jit(jax.vmap(j_angles.read_dial_from_okey))
+    for d in range(D):
+        args = [np.broadcast_to(getattr(host, f)[d],
+                                (B,) + getattr(host, f)[d].shape)
+                for f in ("disk_idx", "disk_valid", "disk_sx2", "disk_sy2",
+                          "ann_idx", "ann_valid", "ann_x", "ann_y",
+                          "ann_angle", "ann_sqd", "neg_sign", "zero_turn")]
+        r = read(jnp.asarray(okey3[:, d].reshape(B, W * W)),
+                 jnp.asarray(km[:, d]), *map(jnp.asarray, args))
+        np.testing.assert_array_equal(readable[:, d].numpy(),
+                                      np.asarray(r.readable))
+        np.testing.assert_allclose(pos[:, d].numpy(), np.asarray(r.position),
+                                   rtol=0, atol=ANGLE_TOL)
+    assert readable[:5].all() and not readable[5].any()
+
+    cases = np.concatenate([
+        rng.uniform(0, 10, (64, 4)),
+        np.array([[1.9, 2.44, 7.56, 0.5], [8.1, 3.56, 2.44, 9.99],
+                  [2.0, 9.45, 0.55, 4.0], [8.0, 0.449, 9.551, 5.0]]),
+    ])
+    want = jax.jit(jax.vmap(
+        lambda p: j_angles.assemble_value(p[host.value_perm])))(
+            jnp.asarray(cases))
+    got = t_angles.assemble_value(torch.as_tensor(cases), pa.value_perm)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
