@@ -6,22 +6,32 @@ Runs from the root of a checkout, with nothing built beforehand:
 
 1. prints the card (torch and CUDA versions, nvidia-smi name and power
    limit); exits non-zero when no CUDA device is present;
-2. builds the four CUDA kernels from meterelf_tpu_torch/csrc with nvcc;
-3. runs each kernel at the decode path's shapes (256 flagship-camera
-   crops, their 1024 dial windows) and holds it against its plain torch
-   version on the same CUDA tensors: exact equality of every output
-   (max_val bitwise); times both with CUDA events;
-4. drives the decode path, MeterDecoder(device="cuda").decode_numpy, on
-   256 synthetic flagship frames and 64 ALT_CAMERA frames with every
-   kernel's launch count reset to 0 first: readings within 0.1 of the
-   rendered positions, the first 16 rows equal to the CPU decode (plain
-   versions), every kernel launched; then a dense-noise window through
-   the CCL kernel, non-converged under the default caps and converged
-   under the rescue caps, equal to the plain version both times;
-5. prints the device time of a steady decode by kernel (torch.profiler)
-   and the device busy share;
-6. prints a JSON line of per-kernel results, then, only if every phase
-   passed, {"ok": true, "device": {...}} as the last line.
+2. builds the six CUDA kernels from meterelf_tpu_torch/csrc with nvcc
+   and the host coefficient reader (io/native/coefs.c) with gcc;
+   renders 256 flagship-camera frames (64 distinct, tiled) and 64
+   ALT_CAMERA frames and encodes them as quality-92 JPEGs with the
+   port's encoder, then reads them with the host coefficient feed;
+3. runs each kernel at the main paths' shapes (256 flagship crops and
+   their 1024 dial windows; the flagship JPEG feed's compact planes for
+   K10 and its block-branch planes for K11) and holds it against its
+   plain torch version on the same CUDA tensors: exact equality of
+   every output (max_val bitwise); times both with CUDA events, and
+   times the library yardstick where one PyTorch call computes the same
+   function (K1's correlation as an fp32 conv2d, TF32 off);
+4. drives the crop decode path, MeterDecoder(device="cuda").decode_numpy,
+   on the 256 + 64 rendered crops, and then the coefficient path,
+   make_coef_decode_fn's step on the 256 + 64 JPEG feeds (and once on
+   the block layout), each with every launch count reset to 0 first:
+   readings within 0.1 of the rendered positions, the first 16 rows
+   equal to the CPU (plain versions), every kernel of the path launched;
+   then a dense-noise window through the CCL kernel, non-converged under
+   the default caps and converged under the rescue caps, equal to the
+   plain version both times;
+5. prints the throughput of both paths and the device time of a steady
+   batch of each by kernel (torch.profiler) with the device busy share;
+6. prints a JSON line of per-kernel results (launches from the
+   coefficient path), the card, then, only if every phase passed,
+   {"ok": true, "device": {...}} as the last line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -39,18 +49,38 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN = 256      # decode batch on the card
 B_ALT = 64        # ALT_CAMERA frames
+N_DISTINCT = 64   # distinct flagship JPEGs, tiled to B_MAIN
 N_CPU_CHECK = 16  # rows compared with the CPU decode
 POS_TOL = 0.1     # reading vs rendered position (dial units)
 ANGLE_TOL = 1e-9  # f64 dial positions, card vs CPU (reduction order)
+QUALITY = 92      # JPEG quality of the encoded frames
+FRAME_WH = (640, 480)
+FEED_THREADS = 8  # host entropy-decode threads
 DEVICE = "cuda:0"
+
+# Rates of the bounds (NVIDIA H100 SXM at 700 W): HBM3 and the dense int8
+# tensor-core and fp32 peaks of NVIDIA's H100 SXM specification. int32:
+# the CUDA C++ Programming Guide's arithmetic-instruction throughput table
+# gives compute capability 9.0 64 results per clock per SM for 32-bit
+# integer add, shift, compare and logic, and 64 for 32-bit multiply-add,
+# which issues on the FP32 pipe beside them; the bound takes both full,
+# 128 per clock on 132 SMs at the 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+INT8_TC_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 
 REPLACES = {
     "frontend": "meterelf_tpu/ops/pallas_frontend.py:416",
     "windows": "meterelf_tpu/ops/pallas_windows.py:241",
     "ccl": "meterelf_tpu/ops/pallas_ccl.py:501",
     "stats": "meterelf_tpu/ops/pallas_stats.py:247",
+    "backhalf_planes": "meterelf_tpu/ops/pallas_jpeg.py:308",
+    "upsample_color_pack": "meterelf_tpu/ops/pallas_jpeg.py:387",
 }
 SOURCES = {k: f"meterelf_tpu_torch/csrc/{k}.cu" for k in REPLACES}
+SOURCES["backhalf_planes"] = SOURCES["upsample_color_pack"] = (
+    "meterelf_tpu_torch/csrc/jpeg.cu")
 
 
 def say(*a: object) -> None:
@@ -74,16 +104,18 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def render(camera, n: int, step: float, spread: float):
-    """n frames with dial d of frame i at (i*step + d*spread) % 10, the
-    position pattern of tests/test_synthetic.py."""
-    pos = np.array([[(i * step + d * spread) % 10 for d in range(4)]
-                    for i in range(n)])
-    return camera.render_crops(pos.tolist()), pos
+    from meterelf_tpu_torch.synthetic import dial_positions
+
+    pos = dial_positions(n, step, spread)
+    return camera.render_crops(pos), np.array(pos)
 
 
-def pack(crops: np.ndarray) -> np.ndarray:
-    c = crops.astype(np.int32)
-    return c[..., 0] | (c[..., 1] << 8) | (c[..., 2] << 16)
+def encode_frames(camera, pos: np.ndarray):
+    """Full frames at the crop offsets of render_crops, as JPEG bytes."""
+    from meterelf_tpu_torch.synthetic import encode_jpeg
+
+    return [encode_jpeg(f, QUALITY)
+            for f in camera.render_frames(pos.tolist())]
 
 
 def check(ok: bool, msg: str) -> None:
@@ -93,6 +125,14 @@ def check(ok: bool, msg: str) -> None:
 
 def circ_err(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.abs((a - b + 5.0) % 10.0 - 5.0)
+
+
+def rows(res, n: int):
+    return type(res)(*[v[:n] for v in res])
+
+
+def to_numpy(res):
+    return type(res)(*[v.cpu().numpy() for v in res])
 
 
 def compare_results(gpu, cpu, label: str) -> None:
@@ -119,6 +159,95 @@ def compare_results(gpu, cpu, label: str) -> None:
         raise AssertionError(f"{label}: rendered values differ")
 
 
+def check_readings(label: str, res, pos: np.ndarray) -> None:
+    check((res.err == 0).all(), f"{label}: err {np.unique(res.err)}")
+    check(res.converged.all(), f"{label}: not converged")
+    e = circ_err(res.dial_pos, pos).max()
+    say(f"{label}: max reading error {e:.4f} (limit {POS_TOL})")
+    check(e < POS_TOL, f"{label}: reading error {e}")
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time of a kernel's work on the card (ms) and what bounds
+    it: each input byte read once and each output byte written once over
+    the HBM rate, against the operations over their type's peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# int32 operations the JPEG back-half needs (each add, multiply, shift,
+# compare or mask one; what the function needs, not what csrc/jpeg.cu
+# executes). Per 8x8 block: 16 ISLOW butterflies of 62 (jidctint.c: 32
+# adds, 12 multiplies, 2 shifts, then 8 rounding adds and 8 descale
+# shifts), and per coefficient 1 dequantising multiply, 3 for the level
+# shift and clamp, and 4 to unpack the compact wire (nibble, merge,
+# sign). Per crop pixel: for each chroma plane 1 for its share of the
+# vertical 3:1 column sum (one multiply-add per chroma column and output
+# row) and 4 for the horizontal 3:1 filter and its rounding shift
+# (jdsample.c); then 26 for colour, clamp and pack (jdcolor.c).
+OPS_PER_BLOCK = 16 * 62 + (1 + 3) * 64
+OPS_PER_BLOCK_COMPACT_UNPACK = 4 * 64
+OPS_PER_PIXEL_TAIL = 2 * (1 + 4) + 26
+
+
+def backhalf_blocks_needed(win) -> int:
+    """The 8x8 blocks (luma and both chroma planes) that the crop's pixels
+    depend on: the luma blocks under the crop, and the chroma blocks under
+    its chroma rows and columns plus the one-sample filter halo, clamped
+    at the valid chroma (the rest of the window is not needed)."""
+    def span(lo: int, hi: int) -> int:
+        return (hi >> 3) - (lo >> 3) + 1
+
+    luma = (span(win.oy, win.oy + win.rh - 1)
+            * span(win.ox, win.ox + win.rw - 1))
+    chroma = (span(max((win.oy >> 1) - 1, 0),
+                   min(((win.oy + win.rh - 1) >> 1) + 1, win.ch_valid - 1))
+              * span(max((win.ox >> 1) - 1, 0),
+                     min(((win.ox + win.rw - 1) >> 1) + 1, win.cw_valid - 1)))
+    return luma + 2 * chroma
+
+
+def profile_ms(label: str, fn, reps: int = 5) -> None:
+    """Device time by kernel over reps steady calls of fn
+    (torch.profiler), and the device busy share against their wall
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / reps
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = []    # device kernels only: aten rows repeat their time
+    n_ops = 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CPU"):
+            n_ops += e.count if e.key.startswith("aten::") else 0
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            found.append((us / reps / 1e3, e.count // reps, e.key))
+    found.sort(reverse=True)
+    busy = sum(r[0] for r in found)
+    say(f"profile {label} (B={B_MAIN}): wall {wall_ms:.3f} ms/batch, device "
+        f"busy {busy:.3f} ms/batch ({100 * busy / wall_ms:.1f}%), "
+        f"{sum(r[1] for r in found)} kernels and {n_ops // reps} aten "
+        "ops per batch")
+    for ms, n, key in found[:12]:
+        say(f"  {ms:8.4f} ms  x{n:<3d} {key[:90]}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -135,11 +264,18 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     say(f"card: {card}")
 
+    import torch.nn.functional as F
+
     from meterelf_tpu_torch import _build, synthetic
-    from meterelf_tpu_torch.ops import components, frontend, stats
+    from meterelf_tpu_torch.io import jpeg as tio
+    from meterelf_tpu_torch.ops import components, frontend, jpeg_tail
+    from meterelf_tpu_torch.ops import jpegdec, stats
     from meterelf_tpu_torch.ops import ccl as ccl_ops
     from meterelf_tpu_torch.ops import windows as win_ops
-    from meterelf_tpu_torch.pipeline.decode import MeterDecoder
+    from meterelf_tpu_torch.ops.color import (lightness_from_planes,
+                                              unpack_planes)
+    from meterelf_tpu_torch.pipeline.decode import (MeterDecoder,
+                                                    make_coef_decode_fn)
 
     t0 = time.perf_counter()
     lib = _build.library()
@@ -148,25 +284,42 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "Used" in line or "Compiling entry" in line:
             say("  ptxas:", line.strip().split("ptxas info    : ")[-1])
+    t0 = time.perf_counter()
+    _build.coef_reader()
+    say(f"coefficient reader (gcc): {time.perf_counter() - t0:.1f} s")
 
     dev = torch.device(DEVICE)
     failures = []
     results = {k: {"name": k, "route": "cuda", "source": SOURCES[k],
-                   "replaces": REPLACES[k]} for k in REPLACES}
+                   "replaces": REPLACES[k], "library_ms": None}
+               for k in REPLACES}
 
     t0 = time.perf_counter()
     cam = synthetic.DEFAULT_CAMERA
     crops, true_pos = render(cam, B_MAIN, 1.7, 2.3)
     alt = synthetic.ALT_CAMERA
     alt_crops, alt_pos = render(alt, B_ALT, 2.1, 1.3)
-    say(f"rendered {B_MAIN} + {B_ALT} frames in "
+    say(f"rendered {B_MAIN} + {B_ALT} crops in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    dec = MeterDecoder(cam.make_params(), device=dev)
-    pa = dec.param_arrays
-    packed = torch.as_tensor(pack(crops)).to(dev)
+    t0 = time.perf_counter()
+    flag_jpegs = encode_frames(cam, true_pos[:N_DISTINCT])
+    alt_jpegs = encode_frames(alt, alt_pos)
+    enc_s = time.perf_counter() - t0
+    datas = [flag_jpegs[i % N_DISTINCT] for i in range(B_MAIN)]
+    say(f"encoded {N_DISTINCT} flagship + {B_ALT} ALT frames "
+        f"({FRAME_WH[0]}x{FRAME_WH[1]}, quality {QUALITY}) in {enc_s:.1f} s: "
+        f"{np.mean([len(d) for d in flag_jpegs]):.0f} and "
+        f"{np.mean([len(d) for d in alt_jpegs]):.0f} bytes/frame; "
+        f"flagship tiled to {B_MAIN}")
 
-    # ---- phase 3: each kernel vs its plain version on the card ----
+    dec = MeterDecoder(cam.make_params(), device=dev)
+    alt_dec = MeterDecoder(alt.make_params(), device=dev)
+    pa = dec.param_arrays
+    packed = torch.as_tensor(tio.pack_crops(crops)).to(dev)
+    step, win, pad_hw = make_coef_decode_fn(dec, FRAME_WH)
+    alt_step, alt_win, alt_pad = make_coef_decode_fn(alt_dec, FRAME_WH)
+
     def phase(name, fn) -> None:
         try:
             fn()
@@ -176,6 +329,36 @@ def main() -> int:
 
     state = {}
 
+    # ---- host coefficient feed ----
+    def host_feed() -> None:
+        t = time.perf_counter()
+        reps = 3
+        for _ in range(reps):
+            feed = tio.load_coef_feed(datas, cam.meter_rect, FRAME_WH,
+                                      pad_hw, num_threads=FEED_THREADS)
+        per = (time.perf_counter() - t) / reps
+        alt_feed = tio.load_coef_feed(alt_jpegs, alt.meter_rect, FRAME_WH,
+                                      alt_pad, num_threads=FEED_THREADS)
+        block = tio.load_coef_feed_shard(
+            datas, tuple(win), False, cam.meter_rect, FRAME_WH, pad_hw,
+            num_threads=FEED_THREADS)
+        for label, f in (("flagship", feed), ("alt", alt_feed),
+                         ("flagship block", block)):
+            check(f[4].all(), f"{label}: frames not loaded "
+                  f"{np.nonzero(~f[4])[0].tolist()}")
+        wire = sum(a[0].nbytes for a in feed[:3])
+        say(f"host feed: load_coef_feed {per * 1e3:.3f} ms/batch of "
+            f"{B_MAIN} ({FEED_THREADS} threads, {B_MAIN / per:.0f} frames/s);"
+            f" layout {feed[0].dtype} {feed[0].shape[1:]}, {wire} B of "
+            f"coefficients + {feed[3][0].nbytes} B of quant tables a frame "
+            "to the card; every frame loaded (both cameras, both layouts)")
+        state["feed"], state["alt_feed"], state["block"] = (feed, alt_feed,
+                                                            block)
+        state["feed_dev"] = [torch.as_tensor(a).to(dev) for a in feed[:5]]
+
+    phase("host feed", host_feed)
+
+    # ---- phase 3: each kernel vs its plain version on the card ----
     def k1() -> None:
         args = (packed, pa.template_u8, dec.score_c1, dec.score_c0)
         got = frontend.frontend(*args)
@@ -195,6 +378,20 @@ def main() -> int:
             lambda: frontend.frontend(*args), 10)
         results["frontend"]["plain_ms"] = cuda_ms(
             lambda: frontend.frontend_plain(*args), 3)
+        # yardstick: the correlation alone as one fp32 convolution (exact:
+        # every partial sum is an integer below 2^24), TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        lp = (lightness_from_planes(*unpack_planes(packed)) - 128).to(
+            torch.float32)[:, None]
+        tp = (pa.template_u8.to(torch.float32) - 128)[None, None]
+        results["frontend"]["library_ms"] = cuda_ms(
+            lambda: F.conv2d(lp, tp), 10)
+        B, H, W = packed.shape
+        th, tw = pa.template_u8.shape
+        macs = B * (H - th + 1) * (W - tw + 1) * th * tw
+        results["frontend"].update(bound(
+            packed.numel() * 4 + th * tw + 12 * B, 2 * macs,
+            INT8_TC_OPS_PER_S))
 
     def k2() -> None:
         args = (packed, state["mx"], state["my"], dec.geom, dec.disk,
@@ -207,6 +404,12 @@ def main() -> int:
         results["windows"]["ms"] = cuda_ms(lambda: win_ops.windows(*args), 20)
         results["windows"]["plain_ms"] = cuda_ms(
             lambda: win_ops.windows_plain(*args), 5)
+        # window pixels read, bits written; ~30 fp32 ops of the HLS chain
+        # a window pixel
+        px = got.numel()
+        results["windows"].update(bound(
+            px * 4 + px * 4 + dec.disk.numel() + 8 * packed.shape[0],
+            30 * px, FP32_OPS_PER_S))
 
     def k3() -> None:
         bits = state["bits"]
@@ -219,6 +422,11 @@ def main() -> int:
         results["ccl"]["ms"] = cuda_ms(lambda: ccl_ops.ccl(bits), 20)
         results["ccl"]["plain_ms"] = cuda_ms(
             lambda: components.propagate(bits), 3)
+        # bits read, okey3 written; at least one 3x3 label pass (9 int32
+        # ops a pixel): the data-dependent pass count is not observed
+        px = bits.numel()
+        results["ccl"].update(bound(px * 8 + bits.shape[0], 9 * px,
+                                    INT32_OPS_PER_S))
 
     def k4() -> None:
         okey3 = state["okey3"]
@@ -230,67 +438,177 @@ def main() -> int:
         results["stats"]["ms"] = cuda_ms(lambda: stats.stats(okey3), 20)
         results["stats"]["plain_ms"] = cuda_ms(
             lambda: stats.stats_plain(okey3), 5)
+        # okey3 read, keymax/has_any written; ~8 int32 ops a pixel (the
+        # 2x2 cell minimum and its corner count)
+        px = okey3.numel()
+        results["stats"].update(bound(px * 4 + 5 * okey3.shape[0], 8 * px,
+                                      INT32_OPS_PER_S))
 
-    for name, fn in (("frontend", k1), ("windows", k2), ("ccl", k3),
-                     ("stats", k4)):
+    def k10() -> None:
+        fy, fcb, fcr, qt = state["feed_dev"][:4]
+        args = (fy, fcb, fcr, qt, win, pad_hw)
+        got = jpeg_tail.backhalf_planes(*args)
+        ref = jpegdec.backhalf_planes_to_packed(*args)
+        torch.cuda.synchronize()
+        results["backhalf_planes"]["max_abs_err"] = float(
+            (got - ref).abs().max())
+        check(torch.equal(got, ref), "packed crops differ")
+        results["backhalf_planes"]["ms"] = cuda_ms(
+            lambda: jpeg_tail.backhalf_planes(*args), 20)
+        results["backhalf_planes"]["plain_ms"] = cuda_ms(
+            lambda: jpegdec.backhalf_planes_to_packed(*args), 2)
+        unpack = OPS_PER_BLOCK_COMPACT_UNPACK if fy.dtype == torch.int8 else 0
+        ops = (fy.shape[0] * backhalf_blocks_needed(win)
+               * (OPS_PER_BLOCK + unpack)
+               + fy.shape[0] * win.rh * win.rw * OPS_PER_PIXEL_TAIL)
+        nbytes = sum(t.numel() * t.element_size() for t in (fy, fcb, fcr, qt))
+        results["backhalf_planes"].update(bound(
+            nbytes + got.numel() * 4, ops, INT32_OPS_PER_S))
+        say(f"K10 input: {tuple(fy.shape)} {fy.dtype} + 2 x "
+            f"{tuple(fcb.shape)}, output {tuple(got.shape)}")
+
+    def k11() -> None:
+        sy, scb, scr = jpegdec.idct_planes(
+            *(torch.as_tensor(a).to(dev) for a in state["block"][:4]), win)
+        args = (sy, scb, scr, win, pad_hw)
+        got = jpeg_tail.upsample_color_pack(*args)
+        ref = jpegdec.tail_to_packed(*args)
+        torch.cuda.synchronize()
+        results["upsample_color_pack"]["max_abs_err"] = float(
+            (got - ref).abs().max())
+        check(torch.equal(got, ref), "packed crops differ")
+        k10_out = jpeg_tail.backhalf_planes(*state["feed_dev"][:4], win,
+                                            pad_hw)
+        check(torch.equal(got, k10_out),
+              "block branch (plain IDCT + K11) differs from K10")
+        results["upsample_color_pack"]["ms"] = cuda_ms(
+            lambda: jpeg_tail.upsample_color_pack(*args), 20)
+        results["upsample_color_pack"]["plain_ms"] = cuda_ms(
+            lambda: jpegdec.tail_to_packed(*args), 5)
+        nbytes = sum(t.numel() for t in (sy, scb, scr)) + got.numel() * 4
+        results["upsample_color_pack"].update(bound(
+            nbytes, sy.shape[0] * win.rh * win.rw * OPS_PER_PIXEL_TAIL,
+            INT32_OPS_PER_S))
+
+    kernel_phases = (("frontend", k1), ("windows", k2), ("ccl", k3),
+                     ("stats", k4), ("backhalf_planes", k10),
+                     ("upsample_color_pack", k11))
+    for name, fn in kernel_phases:
         phase(f"kernel {name}", fn)
         r = results[name]
         say(f"{name}: max_abs_err {r.get('max_abs_err')} "
             f"kernel {r.get('ms')} ms plain {r.get('plain_ms')} ms "
-            f"(shape: B={B_MAIN}, K={4 * B_MAIN})")
+            f"library {r.get('library_ms')} ms bound {r.get('bound_ms')} ms "
+            f"({r.get('bound_by')}) (B={B_MAIN})")
         if failures:
             break   # later kernels consume this one's output
 
-    # ---- phase 4: the decode path through the kernels ----
-    kernel_fns = (frontend.frontend, win_ops.windows, ccl_ops.ccl,
-                  stats.stats)
-    alt_dec = MeterDecoder(alt.make_params(), device=dev)
+    # ---- phase 4: the crop decode path and the coefficient path ----
+    crop_kernels = (frontend.frontend, win_ops.windows, ccl_ops.ccl,
+                    stats.stats)
+    coef_kernels = crop_kernels + (jpeg_tail.backhalf_planes,
+                                   jpeg_tail.upsample_color_pack)
 
-    def slice_run() -> None:
+    def reset(fns) -> None:
+        for fn in fns:
+            fn.launches = 0
+
+    def counts(fns) -> dict:
+        return {fn.__name__: fn.launches for fn in fns}
+
+    def crop_run() -> None:
         dec.decode_numpy(crops[:8])   # warm-up (library, allocator)
         torch.cuda.synchronize()
-        for fn in kernel_fns:
-            fn.launches = 0
+        reset(coef_kernels)
         t = time.perf_counter()
         res = dec.decode_numpy(crops)
         res_alt = alt_dec.decode_numpy(alt_crops)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = {fn.__name__: fn.launches for fn in kernel_fns}
-        for name, n in launches.items():
-            results[name]["launches"] = n
-        say(f"decode path: {B_MAIN} flagship + {B_ALT} ALT frames in "
+        launches = counts(crop_kernels)
+        say(f"crop decode path: {B_MAIN} flagship + {B_ALT} ALT crops in "
             f"{wall:.3f} s; launches {launches}")
-        for label, r, pos in (("flagship", res, true_pos),
-                              ("alt", res_alt, alt_pos)):
-            check((r.err == 0).all(), f"{label}: err {np.unique(r.err)}")
-            check(r.converged.all(), f"{label}: not converged")
-            e = circ_err(r.dial_pos, pos).max()
-            say(f"{label}: max reading error {e:.4f} (limit {POS_TOL})")
-            check(e < POS_TOL, f"{label}: reading error {e}")
+        check_readings("crop flagship", res, true_pos)
+        check_readings("crop alt", res_alt, alt_pos)
         cpu_dec = MeterDecoder(cam.make_params(), device="cpu")
         cpu_alt = MeterDecoder(alt.make_params(), device="cpu")
-        compare_results(type(res)(*[v[:N_CPU_CHECK] for v in res]),
+        compare_results(rows(res, N_CPU_CHECK),
                         cpu_dec.decode_numpy(crops[:N_CPU_CHECK]),
-                        "flagship vs CPU")
-        compare_results(type(res_alt)(*[v[:N_CPU_CHECK] for v in res_alt]),
+                        "crop flagship vs CPU")
+        compare_results(rows(res_alt, N_CPU_CHECK),
                         cpu_alt.decode_numpy(alt_crops[:N_CPU_CHECK]),
-                        "alt vs CPU")
+                        "crop alt vs CPU")
         say(f"first {N_CPU_CHECK} rows equal the CPU decode (both cameras)")
         check(all(n > 0 for n in launches.values()),
-              f"a kernel of the path was not launched: {launches}")
+              f"a kernel of the crop path was not launched: {launches}")
+
+    def cut(feed, n):
+        return [a[:n] for a in feed[:5]] + list(feed[5:])
+
+    def coef_run() -> None:
+        feed, alt_feed, block = state["feed"], state["alt_feed"], \
+            state["block"]
+        step(None, *cut(feed, 8))     # warm-up
+        torch.cuda.synchronize()
+        reset(coef_kernels)
+        t = time.perf_counter()
+        res = to_numpy(step(None, *feed))
+        res_alt = to_numpy(alt_step(None, *alt_feed))
+        res_blk = to_numpy(step(None, *block))
+        wall = time.perf_counter() - t
+        launches = counts(coef_kernels)
+        for name, n in launches.items():
+            results[name]["launches"] = n
+        say(f"coefficient path: {B_MAIN} flagship + {B_ALT} ALT JPEG feeds "
+            f"(compact planes) and {B_MAIN} flagship (block layout) in "
+            f"{wall:.3f} s; launches {launches}")
+        flag_pos = true_pos[np.arange(B_MAIN) % N_DISTINCT]
+        check_readings("coef flagship", res, flag_pos)
+        check_readings("coef alt", res_alt, alt_pos)
+        check_readings("coef flagship block branch", res_blk, flag_pos)
+        for f in res._fields:
+            check(np.array_equal(getattr(res, f), getattr(res_blk, f)),
+                  f"block branch differs from the compact feed in {f}")
+        cpu_step, _, _ = make_coef_decode_fn(
+            MeterDecoder(cam.make_params(), device="cpu"), FRAME_WH)
+        cpu_alt, _, _ = make_coef_decode_fn(
+            MeterDecoder(alt.make_params(), device="cpu"), FRAME_WH)
+        compare_results(rows(res, N_CPU_CHECK),
+                        to_numpy(cpu_step(None, *cut(feed, N_CPU_CHECK))),
+                        "coef flagship vs CPU")
+        compare_results(rows(res_alt, N_CPU_CHECK),
+                        to_numpy(cpu_alt(None, *cut(alt_feed, N_CPU_CHECK))),
+                        "coef alt vs CPU")
+        say(f"first {N_CPU_CHECK} rows equal the CPU step (both cameras)")
+        check(all(n > 0 for n in launches.values()),
+              f"a kernel of the coefficient path was not launched: "
+              f"{launches}")
 
     def throughput() -> None:
         ms = cuda_ms(lambda: dec(packed), 10)
-        say(f"decode (device-resident packed crops, B={B_MAIN}): "
+        say(f"crop decode (device-resident packed crops, B={B_MAIN}): "
             f"{ms:.3f} ms/batch = {B_MAIN / ms * 1e3:.0f} images/s")
         t = time.perf_counter()
         reps = 5
         for _ in range(reps):
             dec.decode_numpy(crops)
         per = (time.perf_counter() - t) / reps
-        say(f"decode_numpy (host u8 crops in, numpy out, B={B_MAIN}): "
+        say(f"crop decode_numpy (host u8 crops in, numpy out, B={B_MAIN}): "
             f"{per * 1e3:.3f} ms/batch = {B_MAIN / per:.0f} images/s")
+        fd = state["feed_dev"]
+        fb = state["feed"][5:]
+        ms = cuda_ms(lambda: step(None, *fd, *fb), 10)
+        say(f"coefficient step (device-resident feed, B={B_MAIN}): "
+            f"{ms:.3f} ms/batch = {B_MAIN / ms * 1e3:.0f} images/s")
+        t = time.perf_counter()
+        for _ in range(reps):
+            f = tio.load_coef_feed(datas, cam.meter_rect, FRAME_WH, pad_hw,
+                                   num_threads=FEED_THREADS)
+            to_numpy(step(None, *f))
+        per = (time.perf_counter() - t) / reps
+        say(f"coefficient path end to end (JPEG bytes -> host feed -> H2D "
+            f"-> step -> numpy, B={B_MAIN}): {per * 1e3:.3f} ms/batch = "
+            f"{B_MAIN / per:.0f} images/s")
 
     def rescue() -> None:
         yy, xx = np.mgrid[:64, :64]
@@ -311,45 +629,13 @@ def main() -> int:
             "under RESCUE_CAPS, kernel == plain both times")
 
     def profile() -> None:
-        """Device time by kernel over 5 steady decodes (torch.profiler),
-        and the device busy share against their wall time."""
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as torch_profile
-
-        reps = 5
-        dec(packed)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(reps):
-            dec(packed)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / reps
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                dec(packed)
-            torch.cuda.synchronize()
-        rows = []     # device kernels only: aten rows repeat their time
-        n_ops = 0
-        for e in prof.key_averages():
-            if str(e.device_type).endswith("CPU"):
-                n_ops += e.count if e.key.startswith("aten::") else 0
-                continue
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            if us > 0:
-                rows.append((us / reps / 1e3, e.count // reps, e.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        say(f"profile (B={B_MAIN}): wall {wall_ms:.3f} ms/batch, device "
-            f"busy {busy:.3f} ms/batch ({100 * busy / wall_ms:.1f}%), "
-            f"{sum(r[1] for r in rows)} kernels and {n_ops // reps} aten "
-            "ops per batch")
-        for ms, n, key in rows[:12]:
-            say(f"  {ms:8.4f} ms  x{n:<3d} {key[:90]}")
+        profile_ms("crop decode", lambda: dec(packed))
+        fd, fb = state["feed_dev"], state["feed"][5:]
+        profile_ms("coefficient step", lambda: step(None, *fd, *fb))
 
     if not failures:
-        phase("decode path", slice_run)
+        phase("crop decode path", crop_run)
+        phase("coefficient path", coef_run)
         phase("throughput", throughput)
         phase("rescue", rescue)
         phase("profile", profile)

@@ -1,11 +1,14 @@
-"""Build the port's CUDA kernels and load them.
+"""Build the port's native code and load it.
 
 All of ``csrc/*.cu`` is compiled by nvcc into one shared library with a
 plain C interface (``csrc/meterelf_kernels.h``), at first use, into
-``_build/`` beside this file, and loaded with ctypes. The library's name
-carries a hash of the sources and flags, so an edited source builds
-anew. Nothing here runs at import time, and nothing falls back: a
-missing nvcc or a failed build raises.
+``_build/`` beside this file, and loaded with ctypes (``library``). The
+host JPEG coefficient reader ``io/native/coefs.c`` is compiled by gcc
+into a library of its own in the same place (``coef_reader``); it needs
+no libjpeg and no GPU. A library's name carries a hash of its sources
+and flags, so an edited source builds anew. Nothing here runs at import
+time, and nothing falls back: a missing compiler or a failed build
+raises.
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into one FMA (the
 exact colour and score chains are spelled with round-to-nearest
@@ -26,6 +29,8 @@ from typing import Any, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+COEF_SRC = Path(__file__).resolve().parent / "io" / "native" / "coefs.c"
+GCC_FLAGS = ["-O3", "-fPIC", "-shared", "-pthread"]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +47,8 @@ _SIGNATURES = {
     "meterelf_windows": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
     "meterelf_ccl": [_P, _I, _I, _I, _I, _P, _P, _P],
     "meterelf_stats": [_P, _I, _P, _P, _P],
+    "meterelf_backhalf_planes": [_P, _P, _P, _I, _P, _I, _P, _P, _P],
+    "meterelf_upsample_color_pack": [_P, _P, _P, _I, _P, _P, _P],
 }
 
 
@@ -89,18 +96,25 @@ def _nvcc() -> str:
         "cannot be built on this machine")
 
 
-def _build(target: Path) -> str:
+def _compile(cmd: List[str], target: Path, what: str) -> str:
+    """Run a compiler command with ``-o`` a temporary name, then move the
+    result to ``target``; returns the compiler's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
+    cmd = [*cmd, "-o", str(tmp)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(
-            "nvcc failed building the CUDA kernels:\n" + " ".join(cmd)
+            f"{cmd[0]} failed building {what}:\n" + " ".join(cmd)
             + "\n" + r.stdout[-4000:] + r.stderr[-8000:])
     os.replace(tmp, target)
     return r.stdout + r.stderr
+
+
+def _build(target: Path) -> str:
+    cus = [str(p) for p in sources() if p.suffix == ".cu"]
+    return _compile([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), *cus], target,
+                    "the CUDA kernels")
 
 
 def library() -> KernelLibrary:
@@ -122,3 +136,30 @@ def library() -> KernelLibrary:
                 fn.restype = ctypes.c_int
             _LOADED.append(KernelLibrary(lib, target, seconds, log or ""))
         return _LOADED[0]
+
+
+_COEF_SIGNATURE = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _P, _P, _P, _P, _P, _I]
+_COEF_LOADED: List[ctypes.CDLL] = []
+
+
+def coef_reader() -> ctypes.CDLL:
+    """The host coefficient reader (``io/native/coefs.c``), built with gcc
+    on first use in this process (or loaded from ``_build/`` when a build
+    of the same source is there)."""
+    with _LOCK:
+        if not _COEF_LOADED:
+            h = hashlib.sha256(" ".join(GCC_FLAGS).encode())
+            h.update(COEF_SRC.read_bytes())
+            target = BUILD_DIR / f"libmeterelf_coefs_{h.hexdigest()[:16]}.so"
+            if not target.exists():
+                _compile(["gcc", *GCC_FLAGS, str(COEF_SRC)], target,
+                         "the coefficient reader")
+            lib = ctypes.CDLL(str(target))
+            lib.mej_read_coefs_region_batch.argtypes = _COEF_SIGNATURE
+            lib.mej_read_coefs_region_batch_compact.argtypes = (
+                _COEF_SIGNATURE + [_P, _P, _P])
+            lib.mej_read_coefs_region_batch.restype = None
+            lib.mej_read_coefs_region_batch_compact.restype = None
+            _COEF_LOADED.append(lib)
+        return _COEF_LOADED[0]

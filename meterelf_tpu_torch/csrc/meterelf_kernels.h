@@ -51,6 +51,29 @@ int meterelf_ccl(const int32_t* bits, int K, int k_label, int k_outside,
 int meterelf_stats(const int32_t* okey3, int K, int32_t* keymax,
                    uint8_t* has_any, void* stream);
 
+// JPEG back-half geometry (HOST pointer geom, 10 ints): lh, lw (luma
+// plane of the coefficient window), oy, ox, rh, rw (crop in the window),
+// ch_valid, cw_valid (valid chroma samples), ph, pw (output staging
+// shape; pixels outside the crop are written 0).
+//
+// K10: frequency-plane coefficients -> packed BGR crops. compact = 1:
+// fy [B, lh*3/2, lw], fcb/fcr [B, lh*3/4, lw/2] int8 (compact wire);
+// compact = 0: fy [B, lh, lw], fcb/fcr [B, lh/2, lw/2] i16. Planes must
+// be 16-byte aligned. qt [B, 3, 64] u16, natural order. Out: [B, ph, pw]
+// i32 (b | g<<8 | r<<16).
+int meterelf_backhalf_planes(const void* fy, const void* fcb,
+                             const void* fcr, int compact,
+                             const uint16_t* qt, int B,
+                             const int32_t* geom, int32_t* out,
+                             void* stream);
+
+// K11: spatial u8 planes y [B, lh, lw], cb/cr [B, lh/2, lw/2] -> [B, ph,
+// pw] packed BGR i32 (upsample, colour, crop).
+int meterelf_upsample_color_pack(const uint8_t* y, const uint8_t* cb,
+                                 const uint8_t* cr, int B,
+                                 const int32_t* geom, int32_t* out,
+                                 void* stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -1,0 +1,169 @@
+"""Host half of the JPEG coefficient feed: entropy decode only.
+
+Port of the coefficient-feed part of meterelf_tpu/io/jpeg.py
+(``read_coefs_batch``, ``load_coef_feed``, ``load_coef_feed_shard``,
+``pack_crops``). The reader is ``io/native/coefs.c``, the JAX package's
+fast baseline reader without libjpeg, built by gcc at first use
+(``_build.coef_reader``). It decodes the Huffman stream of each frame's
+coefficient window on host threads (GIL-free); dequantisation, the
+IDCT, chroma upsampling and colour conversion run on the device
+(ops/jpegdec.py, csrc/jpeg.cu).
+
+Two differences from the JAX package:
+
+- **No arena reuse.** Every call returns freshly allocated arrays that
+  the caller owns; the JAX feed hands out thread-local double-buffered
+  arenas that a second later call on the same thread overwrites.
+- **No pixel fallback yet.** A frame the reader rejects (progressive,
+  4:4:4 or 4:2:2, 16-bit DQT, truncated, restart mismatch, a colour
+  space other than YCbCr, unexpected frame size) keeps zeroed rows and
+  gets ``load_ok=False``, and every fallback slot stays unused
+  (``fb_idx == len(datas)``). The JAX package decodes such frames with
+  libjpeg into the fallback slots; the port has no pixel decoder yet.
+  Cameras produce clean baseline 4:2:0 frames, which both read alike.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from .. import _build
+from ..ops.jpegdec import CoefWindow, backhalf_ok, coef_window
+from ..types import Rect
+
+Feed = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+             np.ndarray, np.ndarray, np.ndarray]
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def read_coefs_batch(
+    datas: Sequence[bytes],
+    win: CoefWindow,
+    frame_wh: Tuple[int, int],
+    num_threads: int = 2,
+    plane_layout: bool = False,
+    compact: bool = False,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Entropy-decode the coefficient window of every frame.
+
+    Returns (coef_y, coef_cb, coef_cr, qt [N, 3, 64] u16, ok [N] bool).
+    Block layout (default): coef_y [N, lbh*lbw, 64] i16, chroma
+    [N, (lbh//2)*(lbw//2), 64] i16, natural order within a block.
+    plane_layout=True: the frequency-plane layout, coef_y
+    [N, lbh*8, lbw*8] with coefficient (r, c) of block (by, bx) at
+    [8*by + r, 8*bx + c], chroma [N, lbh*4, lbw*4]. compact=True (plane
+    layout only): each plane as int8 [rows*3/2, cols], the lo bytes
+    followed by row-pair hi nibbles (ops/jpegdec.uncompact_plane), 12
+    bits a coefficient. ok=False rows (the reader rejected the frame, or
+    a coefficient is outside the compact range) are zero."""
+    if compact and not plane_layout:
+        raise ValueError("the compact wire format is plane-layout only")
+    lib = _build.coef_reader()
+    n = len(datas)
+    if plane_layout:
+        yshape = (n, win.lbh * 8, win.lbw * 8)
+        cshape = (n, win.lbh * 4, win.lbw * 4)
+    else:
+        yshape = (n, win.lbh * win.lbw, 64)
+        cshape = (n, win.lbh * win.lbw // 4, 64)
+    coef_y = np.zeros(yshape, np.int16)
+    coef_cb = np.zeros(cshape, np.int16)
+    coef_cr = np.zeros(cshape, np.int16)
+    qt = np.zeros((n, 3, 64), np.uint16)
+    ok = np.zeros(n, np.int32)
+    arr_ptrs = (ctypes.c_char_p * n)(*datas)
+    arr_sizes = (ctypes.c_ulong * n)(*[len(d) for d in datas])
+    args = [ctypes.addressof(arr_ptrs), ctypes.addressof(arr_sizes), n,
+            win.lbx0, win.lby0, win.lbw, win.lbh,
+            frame_wh[0], frame_wh[1], int(plane_layout),
+            _ptr(coef_y), _ptr(coef_cb), _ptr(coef_cr), _ptr(qt), _ptr(ok),
+            num_threads]
+    if compact:
+        cmp = [np.zeros((n, s[1] * 3 // 2, s[2]), np.int8)
+               for s in (yshape, cshape, cshape)]
+        lib.mej_read_coefs_region_batch_compact(*args,
+                                                *[_ptr(c) for c in cmp])
+        coef_y, coef_cb, coef_cr = cmp
+    else:
+        lib.mej_read_coefs_region_batch(*args)
+    bad = ok != 0
+    for a in (coef_y, coef_cb, coef_cr, qt):
+        a[bad] = 0     # a rejected frame may have written some rows
+    return coef_y, coef_cb, coef_cr, qt, ~bad
+
+
+def load_coef_feed(
+    datas: Sequence[bytes],
+    meter_rect: Rect,
+    frame_wh: Tuple[int, int],
+    pad_hw: Tuple[int, int],
+    fb_slots: int = 8,
+    num_threads: int = 2,
+) -> Feed:
+    """The host feed of one ``make_coef_decode_fn`` step.
+
+    Picks the compact frequency-plane layout whenever the fused back-half
+    kernel (K10) takes the window (ops/jpegdec.backhalf_ok), else the
+    block layout (the plain IDCT and K11). Returns (coef_y, coef_cb,
+    coef_cr, qt, load_ok, fb_packed [fb_slots, PH, PW] i32, fb_idx
+    [fb_slots] i32); the fallback slots are all unused (module
+    docstring)."""
+    win = coef_window(meter_rect, frame_wh[0], frame_wh[1])
+    plane = backhalf_ok(win, tuple(pad_hw))
+    return load_coef_feed_shard(
+        datas, tuple(win), plane, meter_rect, frame_wh, pad_hw,
+        fb_slots=fb_slots, num_threads=num_threads)
+
+
+def load_coef_feed_shard(
+    datas: Sequence[bytes],
+    win_tuple: Tuple[int, ...],
+    plane: bool,
+    meter_rect: Rect,
+    frame_wh: Tuple[int, int],
+    pad_hw: Tuple[int, int],
+    fb_slots: int = 8,
+    num_threads: int = 1,
+) -> Feed:
+    """load_coef_feed with the window (a CoefWindow as a plain tuple) and
+    the layout chosen by the caller: compact planes when ``plane``, else
+    blocks. ``meter_rect`` is unused until the port has a pixel decoder
+    for the fallback slots; it is kept so that the call has the JAX
+    package's signature."""
+    del meter_rect
+    cy, cb, cr, qt, ok = read_coefs_batch(
+        datas, CoefWindow(*win_tuple), frame_wh, num_threads=num_threads,
+        plane_layout=plane, compact=plane)
+    fb_idx = np.full(fb_slots, len(datas), np.int32)
+    fb_packed = np.zeros((fb_slots, pad_hw[0], pad_hw[1]), np.int32)
+    return cy, cb, cr, qt, ok, fb_packed, fb_idx
+
+
+def compact_planes(plane: np.ndarray) -> np.ndarray:
+    """Dense coefficient planes [N, R, C] (values in [-2048, 2047], R
+    even) -> the compact wire [N, R*3/2, C] int8 that read_coefs_batch
+    writes with compact=True (numpy copy of the reader's
+    mej_compact_plane; the inverse of ops/jpegdec.uncompact_plane)."""
+    vi = plane.astype(np.int32)
+    lo = (vi & 255).astype(np.uint8).view(np.int8)
+    hi = ((vi[:, 0::2] >> 8) & 15) | (((vi[:, 1::2] >> 8) & 15) << 4)
+    return np.concatenate([lo, hi.astype(np.uint8).view(np.int8)], axis=1)
+
+
+def pack_crops(crops_u8: np.ndarray,
+               pad_hw: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """[B, H, W, 3] u8 BGR -> [B, H, W] i32 packed (b | g<<8 | r<<16),
+    zero-padded to pad_hw=(PH, PW) when given."""
+    c = crops_u8.astype(np.int32)
+    packed = c[..., 0] | (c[..., 1] << 8) | (c[..., 2] << 16)
+    if pad_hw is not None:
+        B, H, W = packed.shape
+        out = np.zeros((B, pad_hw[0], pad_hw[1]), np.int32)
+        out[:, :H, :W] = packed
+        packed = out
+    return packed

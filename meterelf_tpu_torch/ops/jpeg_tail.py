@@ -1,0 +1,139 @@
+"""K10 `backhalf_planes` and K11 `upsample_color_pack`: the device half of
+the JPEG coefficient feed.
+
+Ports of meterelf_tpu/ops/pallas_jpeg.py fused_backhalf_planes (K10) and
+upsample_color_pack (K11). Both write [B, PH, PW] packed-BGR i32 crops
+(b | g<<8 | r<<16), the crop at [0:rh, 0:rw] and zeros elsewhere.
+
+- ``backhalf_planes``: frequency-plane coefficients (compact int8 wire or
+  dense i16) -> crops: dequantise, ISLOW IDCT, upsample, colour, crop in
+  one kernel. Plain version: jpegdec.backhalf_planes_to_packed.
+- ``upsample_color_pack``: spatial u8 planes -> crops: upsample, colour,
+  crop. Plain version: jpegdec.tail_to_packed.
+- ``backhalf_blocks``: block-layout coefficients -> crops, the feed's
+  block branch, which io/jpeg.load_coef_feed takes for the windows K10
+  refuses (K11's gate, jpegdec.tail_ok, is looser than K10's
+  jpegdec.backhalf_ok): the IDCT in plain torch (int64 butterfly with
+  i32 wrap; torch has no int32 matrix product on CUDA), then K11.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel (csrc/jpeg.cu) or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import _build
+from . import jpegdec
+from .jpegdec import CoefWindow
+from .launch import check_cuda, raise_on_error, stream_of
+
+
+def _geom(kernel: str, gate, win: CoefWindow,
+          pad_hw: Optional[Tuple[int, int]]) -> np.ndarray:
+    """The kernels' host geometry array (csrc/meterelf_kernels.h), after
+    the kernel's geometry gate (ops/jpegdec.backhalf_ok or tail_ok)."""
+    if not gate(win, pad_hw):
+        raise ValueError(
+            f"the {kernel} kernel does not take window {win} with staging "
+            f"{pad_hw} (ops/jpegdec.{gate.__name__})")
+    ph, pw = pad_hw if pad_hw is not None else (win.rh, win.rw)
+    return np.array([8 * win.lbh, 8 * win.lbw, win.oy, win.ox, win.rh,
+                     win.rw, win.ch_valid, win.cw_valid, ph, pw], np.int32)
+
+
+def _check_shape(kernel: str, t: torch.Tensor, shape: Tuple[int, ...]
+                 ) -> None:
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{kernel} kernel: shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{kernel} kernel: tensor not 16-byte aligned")
+
+
+def backhalf_planes(fy: torch.Tensor, fcb: torch.Tensor, fcr: torch.Tensor,
+                    qt: torch.Tensor, win: CoefWindow,
+                    pad_hw: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
+    """K10 wrapper: frequency-plane coefficients fy [B, lh, lw] /
+    fcb, fcr [B, lh/2, lw/2] i16, or their compact int8 wire ([B, lh*3/2,
+    lw] / [B, lh*3/4, lw/2]), and qt [B, 3, 64] u16 -> [B, PH, PW] i32."""
+    if fy.device.type == "cpu":
+        return jpegdec.backhalf_planes_to_packed(fy, fcb, fcr, qt, win,
+                                                 pad_hw)
+    geom = _geom("backhalf_planes", jpegdec.backhalf_ok, win, pad_hw)
+    compact = fy.dtype == torch.int8
+    dtype = torch.int8 if compact else torch.int16
+    B = fy.shape[0]
+    lh, lw = 8 * win.lbh, 8 * win.lbw
+    rows = (lh * 3 // 2, lh * 3 // 4) if compact else (lh, lh // 2)
+    for t, shape in ((fy, (B, rows[0], lw)), (fcb, (B, rows[1], lw // 2)),
+                     (fcr, (B, rows[1], lw // 2))):
+        check_cuda("backhalf_planes", t, dtype, 3, like=fy)
+        _check_shape("backhalf_planes", t, shape)
+    check_cuda("backhalf_planes", qt, torch.uint16, 3, like=fy)
+    _check_shape("backhalf_planes", qt, (B, 3, 64))
+    dev = fy.device
+    out = torch.empty((B, int(geom[8]), int(geom[9])), dtype=torch.int32,
+                      device=dev)
+    if B == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.meterelf_backhalf_planes(
+            fy.data_ptr(), fcb.data_ptr(), fcr.data_ptr(), int(compact),
+            qt.data_ptr(), B, geom.ctypes.data, out.data_ptr(),
+            stream_of(dev))
+    raise_on_error("backhalf_planes", rc)
+    backhalf_planes.launches += 1
+    return out
+
+
+backhalf_planes.launches = 0  # type: ignore[attr-defined]
+
+
+def upsample_color_pack(sy: torch.Tensor, scb: torch.Tensor,
+                        scr: torch.Tensor, win: CoefWindow,
+                        pad_hw: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
+    """K11 wrapper: spatial u8 planes sy [B, lh, lw], scb/scr
+    [B, lh/2, lw/2] -> [B, PH, PW] i32."""
+    if sy.device.type == "cpu":
+        return jpegdec.tail_to_packed(sy, scb, scr, win, pad_hw)
+    geom = _geom("upsample_color_pack", jpegdec.tail_ok, win, pad_hw)
+    B = sy.shape[0]
+    lh, lw = 8 * win.lbh, 8 * win.lbw
+    for t, shape in ((sy, (B, lh, lw)), (scb, (B, lh // 2, lw // 2)),
+                     (scr, (B, lh // 2, lw // 2))):
+        check_cuda("upsample_color_pack", t, torch.uint8, 3, like=sy)
+        _check_shape("upsample_color_pack", t, shape)
+    dev = sy.device
+    out = torch.empty((B, int(geom[8]), int(geom[9])), dtype=torch.int32,
+                      device=dev)
+    if B == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.meterelf_upsample_color_pack(
+            sy.data_ptr(), scb.data_ptr(), scr.data_ptr(), B,
+            geom.ctypes.data, out.data_ptr(), stream_of(dev))
+    raise_on_error("upsample_color_pack", rc)
+    upsample_color_pack.launches += 1
+    return out
+
+
+upsample_color_pack.launches = 0  # type: ignore[attr-defined]
+
+
+def backhalf_blocks(coef_y: torch.Tensor, coef_cb: torch.Tensor,
+                    coef_cr: torch.Tensor, qt: torch.Tensor,
+                    win: CoefWindow,
+                    pad_hw: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
+    """Block-layout coefficients [B, NB, 64] i16 -> [B, PH, PW] i32: the
+    plain IDCT, then K11 (the plain tail on the CPU)."""
+    return upsample_color_pack(
+        *jpegdec.idct_planes(coef_y, coef_cb, coef_cr, qt, win), win, pad_hw)

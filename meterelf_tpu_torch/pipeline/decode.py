@@ -17,10 +17,14 @@ batch, on one device:
 
 On a CUDA device every kernel stage launches its CUDA kernel; on the CPU
 the same code runs each kernel's plain torch version.
+
+``make_coef_decode_fn`` puts the JPEG back-half of the coefficient feed
+(ops/jpeg_tail.py: K10, or the plain IDCT and K11 on the block layout)
+in front of the same decode.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +35,8 @@ from ..ops.angles import assemble_value, read_dials
 from ..ops.ccl import ccl
 from ..ops.components import RESCUE_CAPS
 from ..ops.frontend import frontend, score_constants
+from ..ops.jpeg_tail import backhalf_blocks, backhalf_planes
+from ..ops.jpegdec import CoefWindow, coef_window
 from ..ops.stats import stats
 from ..ops.windows import windows
 
@@ -165,6 +171,60 @@ class MeterDecoder:
         return BatchResult(*[
             np.where(take.reshape(take.shape + (1,) * (a.ndim - 1)), a, b)
             for a, b in zip((np.asarray(v) for v in res), res2)])
+
+
+def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
+                        ) -> Tuple[Callable[..., BatchResult], CoefWindow,
+                                   Tuple[int, int]]:
+    """The coefficient feed's decode step (port of
+    meterelf_tpu/pipeline/decode.py make_coef_decode_fn).
+
+    Returns (step, win, pad_hw). ``step(pa, coef_y, coef_cb, coef_cr, qt,
+    load_ok, fb_packed, fb_idx) -> BatchResult`` (device tensors) takes
+    the arrays of io.jpeg.load_coef_feed, host or device: it finishes the
+    JPEG decode on ``dec``'s device (K10 on compact int8 or dense i16
+    frequency planes, the plain IDCT and K11 on i16 blocks, dispatched on
+    dtype and shape), writes the fallback rows ``fb_packed[j]`` over row
+    ``fb_idx[j]`` for the slots with 0 <= fb_idx[j] < B (the others are
+    dropped, as JAX's mode="drop"), and decodes the [B, rh, rw] crops.
+    ``pa`` is accepted for the JAX package's signature; the decoder's own
+    device arrays are used. ``win`` is the CoefWindow the feed must
+    match, ``pad_hw`` the crop shape (``dec.feed_pad_hw``) at which the
+    back-half writes the crops and the fallback slots are staged."""
+    rect = dec.params.meter_rect
+    win = coef_window(rect, frame_wh[0], frame_wh[1])
+    pad_hw = dec.feed_pad_hw
+    plane_shape = (win.lbh * 8, win.lbw * 8)
+    block_shape = (win.lbh * win.lbw, 64)
+    if plane_shape == block_shape:
+        raise ValueError(f"ambiguous coefficient layouts for window {win}")
+    dev = dec.device
+
+    def step(pa: Any, cy: Any, cb: Any, cr: Any, qt: Any, ok: Any,
+             fb_packed: Any, fb_idx: Any) -> BatchResult:
+        del pa
+        cy, cb, cr, qt = (torch.as_tensor(a).to(dev) for a in (cy, cb, cr, qt))
+        rows, cols = cy.shape[1:]
+        if cy.dtype == torch.int8:
+            rows = rows * 2 // 3      # compact wire: 3/2 stored rows a row
+        if (rows, cols) == plane_shape:
+            packed = backhalf_planes(cy, cb, cr, qt, win, pad_hw)
+        elif tuple(cy.shape[1:]) == block_shape:
+            packed = backhalf_blocks(cy, cb, cr, qt, win, pad_hw)
+        else:
+            raise ValueError(f"coefficients of shape {tuple(cy.shape)} fit "
+                             f"neither layout of window {win}")
+        # the slot choice runs on the host (the feed's fb_idx is numpy):
+        # no device sync, and unused slots never cross to the device
+        idx = torch.as_tensor(fb_idx).cpu().to(torch.int64)
+        keep = (idx >= 0) & (idx < packed.shape[0])
+        if bool(keep.any()):
+            fb = torch.as_tensor(fb_packed)
+            packed[idx[keep].to(dev)] = fb[keep.to(fb.device)].to(
+                dev, torch.int32)
+        return dec.decode(packed, ok)
+
+    return step, win, pad_hw
 
 
 def _to_numpy(res: BatchResult) -> BatchResult:

@@ -12,8 +12,11 @@ import pytest
 import torch
 
 from meterelf_tpu_torch import synthetic
-from meterelf_tpu_torch.ops import ccl, components, frontend, stats, windows
-from meterelf_tpu_torch.pipeline.decode import MeterDecoder
+from meterelf_tpu_torch.io import jpeg as tio
+from meterelf_tpu_torch.ops import ccl, components, frontend, jpeg_tail
+from meterelf_tpu_torch.ops import jpegdec, stats, windows
+from meterelf_tpu_torch.pipeline.decode import MeterDecoder, make_coef_decode_fn
+from meterelf_tpu_torch.types import Rect
 
 torch.set_num_threads(2)
 
@@ -28,11 +31,6 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _pack(crops):
-    c = crops.astype(np.int32)
-    return c[..., 0] | (c[..., 1] << 8) | (c[..., 2] << 16)
-
-
 @pytest.fixture(scope="module")
 def case(dev):
     """Flagship decoder on the card and 8 synthetic crops with speckle."""
@@ -42,7 +40,7 @@ def case(dev):
     speck = rng.random(crops.shape[:3]) < 0.01
     crops[speck] = (40, 40, 200)
     dec = MeterDecoder(cam.make_params(), device=dev)
-    return dec, crops, torch.as_tensor(_pack(crops)).to(dev)
+    return dec, crops, torch.as_tensor(tio.pack_crops(crops)).to(dev)
 
 
 def test_frontend_kernel_equals_plain(case):
@@ -100,3 +98,117 @@ def test_wrappers_refuse_bad_inputs(case, dev):
         frontend.frontend(
             torch.zeros((1, 1024, 1024), dtype=torch.int32, device=dev),
             torch.zeros((119, 188), dtype=torch.uint8, device=dev), 0.0, 0.0)
+
+
+# (rect, frame_wh, staging): both cameras' windows, and an unaligned one
+# (crop row origin 13, plane width 80, staging larger than the window)
+JPEG_WINDOWS = {
+    "flagship": (synthetic.DEFAULT_CAMERA.meter_rect, (640, 480), (250, 250)),
+    "alt": (synthetic.ALT_CAMERA.meter_rect, (640, 480), (200, 210)),
+    "unaligned": (Rect((9, 13), (70, 72)), (128, 96), (96, 128)),
+}
+
+
+def _planes(win, B, hi, rng):
+    lh, lw = 8 * win.lbh, 8 * win.lbw
+    return [rng.integers(-hi, hi, (B, r, c)).astype(np.int16)
+            for r, c in ((lh, lw), (lh // 2, lw // 2), (lh // 2, lw // 2))]
+
+
+def _blocks(planes, win, dev):
+    return [jpegdec._plane_to_blocks(torch.as_tensor(p).to(dev), *bs)
+            for p, bs in zip(planes, [(win.lbh, win.lbw)]
+                             + [(win.lbh // 2, win.lbw // 2)] * 2)]
+
+
+@pytest.mark.parametrize("name", sorted(JPEG_WINDOWS))
+def test_jpeg_kernels_equal_plain(dev, name):
+    """K10 on compact and dense planes (dense also at full i16 range,
+    where the IDCT sums wrap) and the block branch (plain IDCT + K11)
+    bit-equal to their plain versions on the card."""
+    rect, wh, pad_hw = JPEG_WINDOWS[name]
+    win = jpegdec.coef_window(rect, *wh)
+    rng = np.random.default_rng(9)
+    B = 4
+    qt = torch.as_tensor(rng.integers(1, 256, (B, 3, 64)).astype(
+        np.uint16)).to(dev)
+    n0, n1 = jpeg_tail.backhalf_planes.launches, \
+        jpeg_tail.upsample_color_pack.launches
+    for hi in (2047, 32767):
+        planes = _planes(win, B, hi + 1, rng)
+        feeds = [planes] + ([[tio.compact_planes(p) for p in planes]]
+                            if hi == 2047 else [])
+        for f in feeds:
+            t = [torch.as_tensor(p).to(dev) for p in f]
+            got = jpeg_tail.backhalf_planes(*t, qt, win, pad_hw)
+            ref = jpegdec.backhalf_planes_to_packed(*t, qt, win, pad_hw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (name, hi, f[0].dtype)
+        blocks = _blocks(planes, win, dev)
+        got = jpeg_tail.backhalf_blocks(*blocks, qt, win, pad_hw)
+        ref = jpegdec.backhalf_to_packed(*blocks, qt, win, pad_hw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (name, hi, "blocks")
+    assert jpeg_tail.backhalf_planes.launches == n0 + 3
+    assert jpeg_tail.upsample_color_pack.launches == n1 + 2
+
+
+def test_block_branch_takes_windows_k10_refuses(dev):
+    """A crop past the frame's valid chroma rows (frame 470 rows high,
+    crop to row 476): K10 refuses the window, and the block branch (plain
+    IDCT + K11) finishes it bit-equal to its plain version."""
+    rect, wh = Rect((50, 300), (300, 476)), (640, 470)
+    win = jpegdec.coef_window(rect, *wh)
+    assert not jpegdec.backhalf_ok(win, None)
+    rng = np.random.default_rng(4)
+    planes = _planes(win, 2, 2048, rng)
+    qt = torch.as_tensor(rng.integers(1, 256, (2, 3, 64)).astype(
+        np.uint16)).to(dev)
+    with pytest.raises(ValueError):
+        jpeg_tail.backhalf_planes(*[torch.as_tensor(p).to(dev)
+                                    for p in planes], qt, win)
+    blocks = _blocks(planes, win, dev)
+    n1 = jpeg_tail.upsample_color_pack.launches
+    got = jpeg_tail.backhalf_blocks(*blocks, qt, win)
+    ref = jpegdec.backhalf_to_packed(*blocks, qt, win)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert jpeg_tail.upsample_color_pack.launches == n1 + 1
+
+
+def test_coef_step_on_card_equals_cpu(dev):
+    """JPEG bytes through the card's coefficient step equal the CPU step
+    (plain versions): 8 flagship frames from the port's encoder."""
+    cam = synthetic.DEFAULT_CAMERA
+    datas = [synthetic.encode_jpeg(f, 92)
+             for f in cam.render_frames(synthetic.dial_positions(8))]
+    feed = tio.load_coef_feed(datas, cam.meter_rect, (640, 480), (250, 250))
+    assert feed[4].all() and feed[0].dtype == np.int8
+    step, _, _ = make_coef_decode_fn(
+        MeterDecoder(cam.make_params(), device=dev), (640, 480))
+    cpu_step, _, _ = make_coef_decode_fn(
+        MeterDecoder(cam.make_params(), device="cpu"), (640, 480))
+    n0 = jpeg_tail.backhalf_planes.launches
+    res = step(None, *feed)
+    assert jpeg_tail.backhalf_planes.launches == n0 + 1
+    for f, x, y in zip(res._fields, res, cpu_step(None, *feed)):
+        x, y = x.cpu().numpy(), y.numpy()
+        if f in ("dial_pos", "value"):
+            np.testing.assert_allclose(x, y, rtol=0, atol=1e-9)
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+def test_jpeg_wrappers_refuse_bad_inputs(dev):
+    rect, wh, _ = JPEG_WINDOWS["flagship"]
+    win = jpegdec.coef_window(rect, *wh)
+    lh, lw = 8 * win.lbh, 8 * win.lbw
+    fy = torch.zeros((1, lh, lw), dtype=torch.int16, device=dev)
+    fc = torch.zeros((1, lh // 2, lw // 2), dtype=torch.int16, device=dev)
+    qt = torch.ones((1, 3, 64), dtype=torch.uint16, device=dev)
+    with pytest.raises(ValueError):      # staging smaller than the crop
+        jpeg_tail.backhalf_planes(fy, fc, fc, qt, win, (200, 250))
+    with pytest.raises(TypeError):
+        jpeg_tail.backhalf_planes(fy, fc, fc, qt.to(torch.int32), win)
+    with pytest.raises(ValueError):      # chroma plane of the wrong shape
+        jpeg_tail.backhalf_planes(fy, fy, fy, qt, win)
