@@ -6,31 +6,41 @@ Runs from the root of a checkout, with nothing built beforehand:
 
 1. prints the card (torch and CUDA versions, nvidia-smi name and power
    limit); exits non-zero when no CUDA device is present;
-2. builds the six CUDA kernels from meterelf_tpu_torch/csrc with nvcc
-   and the host coefficient reader (io/native/coefs.c) with gcc;
-   renders 256 flagship-camera frames (64 distinct, tiled) and 64
-   ALT_CAMERA frames and encodes them as quality-92 JPEGs with the
-   port's encoder, then reads them with the host coefficient feed;
+2. builds the eight CUDA kernels from meterelf_tpu_torch/csrc with nvcc
+   and the host JPEG readers (io/native/*.c) with gcc; renders 256
+   flagship, 64 ALT_CAMERA and 256 FIVE_DIAL_CAMERA frames and encodes
+   flagship (64 distinct, tiled), ALT and five-dial (32 distinct, tiled)
+   frames as quality-92 JPEGs with the port's encoder, plus a fallback
+   batch: the flagship feed with 8 rows re-encoded 4:4:4 and 2 rows cut
+   below the meter window; reads them with the host coefficient feed;
 3. runs each kernel at the main paths' shapes (256 flagship crops and
    their 1024 dial windows; the flagship JPEG feed's compact planes for
-   K10 and its block-branch planes for K11) and holds it against its
-   plain torch version on the same CUDA tensors: exact equality of
-   every output (max_val bitwise); times both with CUDA events, and
-   times the library yardstick where one PyTorch call computes the same
-   function (K1's correlation as an fp32 conv2d, TF32 off);
-4. drives the crop decode path, MeterDecoder(device="cuda").decode_numpy,
-   on the 256 + 64 rendered crops, and then the coefficient path,
-   make_coef_decode_fn's step on the 256 + 64 JPEG feeds (and once on
-   the block layout), each with every launch count reset to 0 first:
-   readings within 0.1 of the rendered positions, the first 16 rows
-   equal to the CPU (plain versions), every kernel of the path launched;
-   then a dense-noise window through the CCL kernel, non-converged under
-   the default caps and converged under the rescue caps, equal to the
-   plain version both times;
-5. prints the throughput of both paths and the device time of a steady
-   batch of each by kernel (torch.profiler) with the device busy share;
+   K10 and its block-branch planes for K11; the five-dial camera's 1280
+   windows for K6; the flagship lightness maps for K8) and holds it
+   against its plain torch version on the same CUDA tensors: exact
+   equality of every output (f32 outputs bitwise); times both with CUDA
+   events, and times the library yardstick where one PyTorch call
+   computes the same function (K1's and K8's correlation as an fp32
+   conv2d, TF32 off);
+4. drives each path with every launch count reset to 0 first: the crop
+   decode (MeterDecoder(device="cuda").decode_numpy) and the coefficient
+   path (make_coef_decode_fn's step) of both cameras (quad branch), the
+   general-geometry branch (FIVE_DIAL_CAMERA through decode_numpy and
+   the coefficient step: K1, K2, K6, no K3/K4), the scorer-only branch
+   (flagship crops with static_win_origin=None: K8, K2, K6) and the
+   fallback batch (every frame loaded, the 4:4:4 rows in the fallback
+   slots): readings within 0.1 of the rendered positions, the first 16
+   rows equal to the CPU (plain versions), the kernels of each path
+   launched as the path requires; then a dense-noise window through the
+   CCL kernel, non-converged under the default caps and converged under
+   the rescue caps, equal to the plain version both times;
+5. prints the throughput of the paths, the host feed time with fallback
+   frames, and the device time of a steady batch of the quad, coefficient
+   and general paths by kernel (torch.profiler) with the device busy
+   share;
 6. prints a JSON line of per-kernel results (launches from the
-   coefficient path), the card, then, only if every phase passed,
+   coefficient path; K6's from the general branch, K8's from the
+   scorer-only branch), the card, then, only if every phase passed,
    {"ok": true, "device": {...}} as the last line.
 
 It imports nothing of JAX or of the JAX package.
@@ -50,6 +60,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN = 256      # decode batch on the card
 B_ALT = 64        # ALT_CAMERA frames
 N_DISTINCT = 64   # distinct flagship JPEGs, tiled to B_MAIN
+N_FIVE = 32       # distinct FIVE_DIAL_CAMERA JPEGs, tiled to B_MAIN
+FB_444 = tuple(range(1, 16, 2))   # feed rows re-encoded 4:4:4 (fallback)
+FB_CUT = (2, 6)   # feed rows truncated below the meter window
 N_CPU_CHECK = 16  # rows compared with the CPU decode
 POS_TOL = 0.1     # reading vs rendered position (dial units)
 ANGLE_TOL = 1e-9  # f64 dial positions, card vs CPU (reduction order)
@@ -77,10 +90,14 @@ REPLACES = {
     "stats": "meterelf_tpu/ops/pallas_stats.py:247",
     "backhalf_planes": "meterelf_tpu/ops/pallas_jpeg.py:308",
     "upsample_color_pack": "meterelf_tpu/ops/pallas_jpeg.py:387",
+    "propagate": "meterelf_tpu/ops/pallas_ccl.py:439",
+    "match_scores": "meterelf_tpu/ops/pallas_match2.py:118",
 }
 SOURCES = {k: f"meterelf_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["backhalf_planes"] = SOURCES["upsample_color_pack"] = (
     "meterelf_tpu_torch/csrc/jpeg.cu")
+SOURCES["propagate"] = "meterelf_tpu_torch/csrc/ccl.cu"
+SOURCES["match_scores"] = "meterelf_tpu_torch/csrc/match.cu"
 
 
 def say(*a: object) -> None:
@@ -106,15 +123,15 @@ def cuda_ms(fn, reps: int) -> float:
 def render(camera, n: int, step: float, spread: float):
     from meterelf_tpu_torch.synthetic import dial_positions
 
-    pos = dial_positions(n, step, spread)
+    pos = dial_positions(n, step, spread, len(camera.dial_specs))
     return camera.render_crops(pos), np.array(pos)
 
 
-def encode_frames(camera, pos: np.ndarray):
+def encode_frames(camera, pos: np.ndarray, subsampling: str = "4:2:0"):
     """Full frames at the crop offsets of render_crops, as JPEG bytes."""
     from meterelf_tpu_torch.synthetic import encode_jpeg
 
-    return [encode_jpeg(f, QUALITY)
+    return [encode_jpeg(f, QUALITY, subsampling=subsampling)
             for f in camera.render_frames(pos.tolist())]
 
 
@@ -269,7 +286,7 @@ def main() -> int:
     from meterelf_tpu_torch import _build, synthetic
     from meterelf_tpu_torch.io import jpeg as tio
     from meterelf_tpu_torch.ops import components, frontend, jpeg_tail
-    from meterelf_tpu_torch.ops import jpegdec, stats
+    from meterelf_tpu_torch.ops import jpegdec, match, stats
     from meterelf_tpu_torch.ops import ccl as ccl_ops
     from meterelf_tpu_torch.ops import windows as win_ops
     from meterelf_tpu_torch.ops.color import (lightness_from_planes,
@@ -285,8 +302,8 @@ def main() -> int:
         if "Used" in line or "Compiling entry" in line:
             say("  ptxas:", line.strip().split("ptxas info    : ")[-1])
     t0 = time.perf_counter()
-    _build.coef_reader()
-    say(f"coefficient reader (gcc): {time.perf_counter() - t0:.1f} s")
+    _build.host_jpeg()
+    say(f"host JPEG readers (gcc): {time.perf_counter() - t0:.1f} s")
 
     dev = torch.device(DEVICE)
     failures = []
@@ -299,19 +316,32 @@ def main() -> int:
     crops, true_pos = render(cam, B_MAIN, 1.7, 2.3)
     alt = synthetic.ALT_CAMERA
     alt_crops, alt_pos = render(alt, B_ALT, 2.1, 1.3)
-    say(f"rendered {B_MAIN} + {B_ALT} crops in "
-        f"{time.perf_counter() - t0:.1f} s")
+    five = synthetic.FIVE_DIAL_CAMERA
+    five_crops, five_pos = render(five, B_MAIN, 1.3, 1.9)
+    say(f"rendered {B_MAIN} flagship + {B_ALT} ALT + {B_MAIN} five-dial "
+        f"crops in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     flag_jpegs = encode_frames(cam, true_pos[:N_DISTINCT])
     alt_jpegs = encode_frames(alt, alt_pos)
-    enc_s = time.perf_counter() - t0
     datas = [flag_jpegs[i % N_DISTINCT] for i in range(B_MAIN)]
-    say(f"encoded {N_DISTINCT} flagship + {B_ALT} ALT frames "
-        f"({FRAME_WH[0]}x{FRAME_WH[1]}, quality {QUALITY}) in {enc_s:.1f} s: "
+    five_jpegs = encode_frames(five, five_pos[:N_FIVE])
+    five_datas = [five_jpegs[i % N_FIVE] for i in range(B_MAIN)]
+    # the fallback batch: rows FB_444 re-encoded 4:4:4 (the coefficient
+    # reader rejects them: they go to the fallback slots), rows FB_CUT cut
+    # below the meter window (its general reader reads them)
+    fb_datas = list(datas)
+    for i, d in zip(FB_444, encode_frames(cam, true_pos[list(FB_444)],
+                                          "4:4:4")):
+        fb_datas[i] = d
+    for i in FB_CUT:
+        fb_datas[i] = datas[i][:int(len(datas[i]) * 0.95)]
+    say(f"encoded {N_DISTINCT} flagship + {B_ALT} ALT + {N_FIVE} five-dial "
+        f"+ {len(FB_444)} 4:4:4 frames ({FRAME_WH[0]}x{FRAME_WH[1]}, "
+        f"quality {QUALITY}) in {time.perf_counter() - t0:.1f} s: "
         f"{np.mean([len(d) for d in flag_jpegs]):.0f} and "
         f"{np.mean([len(d) for d in alt_jpegs]):.0f} bytes/frame; "
-        f"flagship tiled to {B_MAIN}")
+        f"flagship and five-dial tiled to {B_MAIN}")
 
     dec = MeterDecoder(cam.make_params(), device=dev)
     alt_dec = MeterDecoder(alt.make_params(), device=dev)
@@ -319,6 +349,12 @@ def main() -> int:
     packed = torch.as_tensor(tio.pack_crops(crops)).to(dev)
     step, win, pad_hw = make_coef_decode_fn(dec, FRAME_WH)
     alt_step, alt_win, alt_pad = make_coef_decode_fn(alt_dec, FRAME_WH)
+    five_dec = MeterDecoder(five.make_params(), device=dev)
+    five_step, _, five_pad = make_coef_decode_fn(five_dec, FRAME_WH)
+    five_packed = torch.as_tensor(tio.pack_crops(five_crops)).to(dev)
+    # the scorer-only branch: the flagship with static_win_origin=None
+    sc_dec = MeterDecoder(cam.make_params(), device=dev)
+    sc_dec.static_kwargs["static_win_origin"] = None
 
     def phase(name, fn) -> None:
         try:
@@ -490,9 +526,62 @@ def main() -> int:
             nbytes, sy.shape[0] * win.rh * win.rw * OPS_PER_PIXEL_TAIL,
             INT32_OPS_PER_S))
 
+    def k6() -> None:
+        # the general branch's windows: FIVE_DIAL_CAMERA at B_MAIN, K1 + K2
+        fpa = five_dec.param_arrays
+        _, mx, my = frontend.frontend(five_packed, fpa.template_u8,
+                                      five_dec.score_c1, five_dec.score_c0)
+        bits = win_ops.windows(five_packed, mx, my, five_dec.geom,
+                               five_dec.disk, five_dec.hue_shift).reshape(
+                                   -1, 64, 64)
+        ok_g, cv_g = ccl_ops.propagate(bits)
+        ok_r, cv_r = components.propagate(bits, pack_closed=False)
+        results["propagate"]["max_abs_err"] = float((ok_g - ok_r).abs().max())
+        check(torch.equal(ok_g, ok_r), "okey differs")
+        check(torch.equal(cv_g, cv_r), "converged differs")
+        results["propagate"]["ms"] = cuda_ms(
+            lambda: ccl_ops.propagate(bits), 20)
+        results["propagate"]["plain_ms"] = cuda_ms(
+            lambda: components.propagate(bits, pack_closed=False), 3)
+        # bits read, okey written (32 KB a window); at least one 3x3 label
+        # pass (9 int32 ops a pixel)
+        px = bits.numel()
+        results["propagate"].update(bound(px * 8 + bits.shape[0], 9 * px,
+                                          INT32_OPS_PER_S))
+        say(f"K6 input: {tuple(bits.shape)} windows "
+            f"({B_MAIN} five-dial crops)")
+
+    def k8() -> None:
+        L = lightness_from_planes(*unpack_planes(packed)).to(torch.float32)
+        args = (L, pa.template_u8, dec.tmean)
+        got = match.match_scores(*args)
+        ref = match.match_scores_plain(*args)
+        torch.cuda.synchronize()
+        g, r = got.cpu().numpy(), ref.cpu().numpy()
+        results["match_scores"]["max_abs_err"] = float(np.abs(g - r).max())
+        check(np.array_equal(g.view(np.uint32), r.view(np.uint32)),
+              "scores not bitwise equal")
+        results["match_scores"]["ms"] = cuda_ms(
+            lambda: match.match_scores(*args), 10)
+        results["match_scores"]["plain_ms"] = cuda_ms(
+            lambda: match.match_scores_plain(*args), 3)
+        # yardstick: the correlation alone as one fp32 convolution, TF32
+        # off (sum L*T, without the box sum)
+        torch.backends.cudnn.allow_tf32 = False
+        tf = pa.template_u8.to(torch.float32)[None, None]
+        results["match_scores"]["library_ms"] = cuda_ms(
+            lambda: F.conv2d(L[:, None], tf), 10)
+        B, H, W = L.shape
+        th, tw = pa.template_u8.shape
+        macs = B * got.shape[1] * got.shape[2] * th * tw
+        results["match_scores"].update(bound(
+            L.numel() * 4 + th * tw + got.numel() * 4, 2 * macs,
+            INT8_TC_OPS_PER_S))
+
     kernel_phases = (("frontend", k1), ("windows", k2), ("ccl", k3),
                      ("stats", k4), ("backhalf_planes", k10),
-                     ("upsample_color_pack", k11))
+                     ("upsample_color_pack", k11), ("propagate", k6),
+                     ("match_scores", k8))
     for name, fn in kernel_phases:
         phase(f"kernel {name}", fn)
         r = results[name]
@@ -508,6 +597,8 @@ def main() -> int:
                     stats.stats)
     coef_kernels = crop_kernels + (jpeg_tail.backhalf_planes,
                                    jpeg_tail.upsample_color_pack)
+    general_kernels = (ccl_ops.propagate, match.match_scores)
+    all_kernels = coef_kernels + general_kernels
 
     def reset(fns) -> None:
         for fn in fns:
@@ -519,7 +610,7 @@ def main() -> int:
     def crop_run() -> None:
         dec.decode_numpy(crops[:8])   # warm-up (library, allocator)
         torch.cuda.synchronize()
-        reset(coef_kernels)
+        reset(all_kernels)
         t = time.perf_counter()
         res = dec.decode_numpy(crops)
         res_alt = alt_dec.decode_numpy(alt_crops)
@@ -550,7 +641,7 @@ def main() -> int:
             state["block"]
         step(None, *cut(feed, 8))     # warm-up
         torch.cuda.synchronize()
-        reset(coef_kernels)
+        reset(all_kernels)
         t = time.perf_counter()
         res = to_numpy(step(None, *feed))
         res_alt = to_numpy(alt_step(None, *alt_feed))
@@ -583,6 +674,124 @@ def main() -> int:
         check(all(n > 0 for n in launches.values()),
               f"a kernel of the coefficient path was not launched: "
               f"{launches}")
+        check(not any(counts(general_kernels).values()),
+              "the quad branch launched K6 or K8")
+
+    def general_run() -> None:
+        """FIVE_DIAL_CAMERA (D = 5: the general-geometry branch, K1, K2,
+        K6) through MeterDecoder and through make_coef_decode_fn."""
+        five_dec.decode_numpy(five_crops[:8])       # warm-up
+        torch.cuda.synchronize()
+        reset(all_kernels)
+        t = time.perf_counter()
+        res = five_dec.decode_numpy(five_crops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = counts(all_kernels)
+        results["propagate"]["launches"] = launches["propagate"]
+        say(f"general branch, crops: {B_MAIN} five-dial crops in {wall:.3f} "
+            f"s; launches {launches}")
+        check_readings("general five-dial", res, five_pos)
+        # K6 twice when a row needs the rescue
+        check(launches["frontend"] == 1 and launches["windows"] == 1
+              and launches["propagate"] in (1, 2)
+              and launches["ccl"] == 0 and launches["stats"] == 0
+              and launches["match_scores"] == 0,
+              f"general branch launches {launches}")
+        cpu = MeterDecoder(five.make_params(), device="cpu")
+        compare_results(rows(res, N_CPU_CHECK),
+                        cpu.decode_numpy(five_crops[:N_CPU_CHECK]),
+                        "general five-dial vs CPU")
+        feed = tio.load_coef_feed(five_datas, five.meter_rect, FRAME_WH,
+                                  five_pad, num_threads=FEED_THREADS)
+        check(feed[4].all(), "five-dial feed: frames not loaded")
+        reset(all_kernels)
+        res_c = to_numpy(five_step(None, *feed))
+        launches = counts(all_kernels)
+        say(f"general branch, coefficient step: {B_MAIN} five-dial JPEG "
+            f"feeds; launches {launches}")
+        check(launches["propagate"] == 1 and launches["backhalf_planes"] == 1
+              and launches["ccl"] == 0 and launches["stats"] == 0,
+              f"general coefficient step launches {launches}")
+        check_readings("general five-dial coef", res_c,
+                       five_pos[np.arange(B_MAIN) % N_FIVE])
+        cpu_step, _, _ = make_coef_decode_fn(cpu, FRAME_WH)
+        compare_results(rows(res_c, N_CPU_CHECK),
+                        to_numpy(cpu_step(None, *cut(feed, N_CPU_CHECK))),
+                        "general five-dial coef vs CPU")
+        say(f"first {N_CPU_CHECK} rows equal the CPU (crops and step)")
+
+    def scorer_run() -> None:
+        """The flagship crops down the scorer-only branch
+        (static_win_origin=None: K8, locate, K2, K6)."""
+        sc_dec.decode_numpy(crops[:8])              # warm-up
+        torch.cuda.synchronize()
+        reset(all_kernels)
+        t = time.perf_counter()
+        res = sc_dec.decode_numpy(crops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = counts(all_kernels)
+        results["match_scores"]["launches"] = launches["match_scores"]
+        say(f"scorer-only branch: {B_MAIN} flagship crops in {wall:.3f} s; "
+            f"launches {launches}")
+        check_readings("scorer-only flagship", res, true_pos)
+        check(launches["match_scores"] == 1 and launches["frontend"] == 0
+              and launches["propagate"] >= 1 and launches["ccl"] == 0,
+              f"scorer-only launches {launches}")
+        cpu = MeterDecoder(cam.make_params(), device="cpu")
+        cpu.static_kwargs["static_win_origin"] = None
+        compare_results(rows(res, N_CPU_CHECK),
+                        cpu.decode_numpy(crops[:N_CPU_CHECK]),
+                        "scorer-only vs CPU")
+        say(f"first {N_CPU_CHECK} rows equal the CPU decode")
+
+    def fallback_run() -> None:
+        """A flagship coefficient batch with 4:4:4 frames (fallback slots)
+        and frames cut below the window (the general coefficient
+        reader)."""
+        def feed_ms(batch) -> float:
+            t = time.perf_counter()
+            tio.load_coef_feed(batch, cam.meter_rect, FRAME_WH, pad_hw,
+                               num_threads=FEED_THREADS)
+            return (time.perf_counter() - t) * 1e3
+
+        feed_ms(fb_datas)                           # warm-up
+        ms = {"clean": [], "fallback": []}
+        for kind in ("clean", "fallback", "fallback", "clean") * 2:
+            ms[kind].append(feed_ms(datas if kind == "clean" else fb_datas))
+        t = time.perf_counter()
+        tio.load_packed_crops_from_bytes([fb_datas[i] for i in FB_444],
+                                         cam.meter_rect, pad_hw,
+                                         num_threads=FEED_THREADS)
+        whole = (time.perf_counter() - t) * 1e3
+        say(f"host feed, interleaved (clean, fallback, fallback, clean) x2, "
+            f"B={B_MAIN}, {FEED_THREADS} threads: clean "
+            f"{np.mean(ms['clean']):.3f} ms/batch {np.round(ms['clean'], 3)}"
+            f", with fallback frames {np.mean(ms['fallback']):.3f} ms/batch "
+            f"{np.round(ms['fallback'], 3)} ({len(FB_444)} 4:4:4 frames "
+            f"decoded whole into the slots, {len(FB_CUT)} cut frames); the "
+            f"{len(FB_444)} whole-frame decodes alone {whole:.3f} ms")
+        feed = tio.load_coef_feed(fb_datas, cam.meter_rect, FRAME_WH,
+                                  pad_hw, num_threads=FEED_THREADS)
+        check(feed[4].all(), f"fallback batch: frames not loaded "
+              f"{np.nonzero(~feed[4])[0].tolist()}")
+        check(sorted(feed[6].tolist()) == list(FB_444),
+              f"fallback slots {feed[6].tolist()}")
+        reset(all_kernels)
+        res = to_numpy(step(None, *feed))
+        launches = counts(all_kernels)
+        say(f"fallback batch through the coefficient step: launches "
+            f"{launches}")
+        check_readings("fallback batch", res,
+                       true_pos[np.arange(B_MAIN) % N_DISTINCT])
+        cpu_step, _, _ = make_coef_decode_fn(
+            MeterDecoder(cam.make_params(), device="cpu"), FRAME_WH)
+        compare_results(rows(res, N_CPU_CHECK),
+                        to_numpy(cpu_step(None, *cut(feed, N_CPU_CHECK))),
+                        "fallback batch vs CPU")
+        say(f"fallback batch: every frame loaded, slots {sorted(FB_444)}, "
+            f"first {N_CPU_CHECK} rows (all fallback rows) equal the CPU")
 
     def throughput() -> None:
         ms = cuda_ms(lambda: dec(packed), 10)
@@ -609,6 +818,14 @@ def main() -> int:
         say(f"coefficient path end to end (JPEG bytes -> host feed -> H2D "
             f"-> step -> numpy, B={B_MAIN}): {per * 1e3:.3f} ms/batch = "
             f"{B_MAIN / per:.0f} images/s")
+        ms = cuda_ms(lambda: five_dec(five_packed), 10)
+        say(f"general branch decode (five-dial, device-resident crops, "
+            f"B={B_MAIN}): {ms:.3f} ms/batch = {B_MAIN / ms * 1e3:.0f} "
+            "images/s")
+        ms = cuda_ms(lambda: sc_dec(packed), 10)
+        say(f"scorer-only branch decode (flagship, device-resident crops, "
+            f"B={B_MAIN}): {ms:.3f} ms/batch = {B_MAIN / ms * 1e3:.0f} "
+            "images/s")
 
     def rescue() -> None:
         yy, xx = np.mgrid[:64, :64]
@@ -632,10 +849,14 @@ def main() -> int:
         profile_ms("crop decode", lambda: dec(packed))
         fd, fb = state["feed_dev"], state["feed"][5:]
         profile_ms("coefficient step", lambda: step(None, *fd, *fb))
+        profile_ms("general branch decode", lambda: five_dec(five_packed))
 
     if not failures:
         phase("crop decode path", crop_run)
         phase("coefficient path", coef_run)
+        phase("general branch", general_run)
+        phase("scorer-only branch", scorer_run)
+        phase("fallback slots", fallback_run)
         phase("throughput", throughput)
         phase("rescue", rescue)
         phase("profile", profile)

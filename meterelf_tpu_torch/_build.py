@@ -3,10 +3,12 @@
 All of ``csrc/*.cu`` is compiled by nvcc into one shared library with a
 plain C interface (``csrc/meterelf_kernels.h``), at first use, into
 ``_build/`` beside this file, and loaded with ctypes (``library``). The
-host JPEG coefficient reader ``io/native/coefs.c`` is compiled by gcc
-into a library of its own in the same place (``coef_reader``); it needs
-no libjpeg and no GPU. A library's name carries a hash of its sources
-and flags, so an edited source builds anew. Nothing here runs at import
+host JPEG readers in ``io/native/`` (the coefficient reader coefs.c, the
+general decoder decoder.c and what they share, jpeg_common.c) are
+compiled by gcc into a library of their own in the same place
+(``host_jpeg``); they need no libjpeg and no GPU. A library's name
+carries a hash of its sources and flags, so an edited source builds
+anew. Nothing here runs at import
 time, and nothing falls back: a missing compiler or a failed build
 raises.
 
@@ -29,7 +31,8 @@ from typing import Any, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-COEF_SRC = Path(__file__).resolve().parent / "io" / "native" / "coefs.c"
+HOST_DIR = Path(__file__).resolve().parent / "io" / "native"
+HOST_SRCS = ("coefs.c", "decoder.c", "jpeg_common.c")
 GCC_FLAGS = ["-O3", "-fPIC", "-shared", "-pthread"]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +49,8 @@ _SIGNATURES = {
     "meterelf_frontend_smem_bytes": [_I, _I, _I, _I],
     "meterelf_windows": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
     "meterelf_ccl": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "meterelf_propagate": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "meterelf_match_scores": [_P, _I, _I, _I, _P, _I, _I, _I, _F, _P, _P],
     "meterelf_stats": [_P, _I, _P, _P, _P],
     "meterelf_backhalf_planes": [_P, _P, _P, _I, _P, _I, _P, _P, _P],
     "meterelf_upsample_color_pack": [_P, _P, _P, _I, _P, _P, _P],
@@ -140,26 +145,34 @@ def library() -> KernelLibrary:
 
 _COEF_SIGNATURE = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _I]
-_COEF_LOADED: List[ctypes.CDLL] = []
+_HOST_SIGNATURES = {
+    "mej_read_coefs_region_batch": _COEF_SIGNATURE,
+    "mej_read_coefs_region_batch_compact": _COEF_SIGNATURE + [_P, _P, _P],
+    "mej_decode_full_batch": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I],
+    "mej_decode_packed_batch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                _P, _I],
+}
+_HOST_LOADED: List[ctypes.CDLL] = []
 
 
-def coef_reader() -> ctypes.CDLL:
-    """The host coefficient reader (``io/native/coefs.c``), built with gcc
-    on first use in this process (or loaded from ``_build/`` when a build
-    of the same source is there)."""
+def host_jpeg() -> ctypes.CDLL:
+    """The host JPEG library (``io/native/*.c``), built with gcc on first
+    use in this process (or loaded from ``_build/`` when a build of the
+    same sources is there)."""
     with _LOCK:
-        if not _COEF_LOADED:
+        if not _HOST_LOADED:
             h = hashlib.sha256(" ".join(GCC_FLAGS).encode())
-            h.update(COEF_SRC.read_bytes())
-            target = BUILD_DIR / f"libmeterelf_coefs_{h.hexdigest()[:16]}.so"
+            paths = [HOST_DIR / n for n in HOST_SRCS]
+            for p in [*paths, HOST_DIR / "jpeg_common.h"]:
+                h.update(p.read_bytes())
+            target = BUILD_DIR / f"libmeterelf_jpeg_{h.hexdigest()[:16]}.so"
             if not target.exists():
-                _compile(["gcc", *GCC_FLAGS, str(COEF_SRC)], target,
-                         "the coefficient reader")
+                _compile(["gcc", *GCC_FLAGS, "-I", str(HOST_DIR),
+                          *map(str, paths)], target, "the host JPEG readers")
             lib = ctypes.CDLL(str(target))
-            lib.mej_read_coefs_region_batch.argtypes = _COEF_SIGNATURE
-            lib.mej_read_coefs_region_batch_compact.argtypes = (
-                _COEF_SIGNATURE + [_P, _P, _P])
-            lib.mej_read_coefs_region_batch.restype = None
-            lib.mej_read_coefs_region_batch_compact.restype = None
-            _COEF_LOADED.append(lib)
-        return _COEF_LOADED[0]
+            for name, argtypes in _HOST_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = None
+            _HOST_LOADED.append(lib)
+        return _HOST_LOADED[0]

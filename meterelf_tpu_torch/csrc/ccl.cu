@@ -1,9 +1,15 @@
-// K3 `ccl`: connected components of each 64x64 needle mask, the
-// findContours replacement.
+// K3 `ccl` and K6 `propagate`: connected components of each 64x64 needle
+// mask, the findContours replacement.
 //
-// Replaces meterelf_tpu/ops/pallas_ccl.py propagate_quads
-// (_ccl_kernel, pack_closed=True) and runs the pass schedule of its
-// reference, meterelf_tpu/ops/components.py _propagate_xla:
+// K3 replaces meterelf_tpu/ops/pallas_ccl.py propagate_quads
+// (_ccl_kernel, pack_closed=True), the quad branch's CCL; K6 replaces
+// pallas_ccl.py propagate (_ccl_kernel on the pair layout), the CCL of
+// the general-geometry branch (components.analyze_batch). Both run the
+// pass schedule of their reference, meterelf_tpu/ops/components.py
+// _propagate_xla, in one kernel body; a compile-time flag picks the key:
+// K3 okey3 = owner*8 + closed*4 + masked*2 + boundary, K6 okey =
+// owner*4 + masked*2 + boundary (no closed bit). The TPU's pair layout
+// [K/2, 64, 128] is not carried over: one CTA per window in both.
 //   1. 8-connected labels (min flat index per component): each half-pass
 //      is a 3x3 min glue, then segmented min sweeps along rows and then
 //      columns, forward on even halves and backward on odd ones
@@ -13,9 +19,8 @@
 //      k_outside;
 //   3. enclosed holes take the min label of their 3x3 neighbourhood, at
 //      most k_fill passes;
-//   4. okey3 = owner*8 + closed*4 + masked*2 + boundary, with owner 4096
-//      off the support (masked | enclosed) and boundary = masked next to
-//      outside (8-neighbourhood).
+//   4. the key, with owner 4096 off the support (masked | enclosed) and
+//      boundary = masked next to outside (8-neighbourhood).
 // A phase has converged when its last executed pass changed nothing. All
 // passes are monotone (labels only fall, the outside only grows), so a
 // pass that changes nothing is a fixpoint of every later pass: stopping
@@ -107,6 +112,7 @@ __device__ bool or_sweep(uint8_t* o, const uint8_t* m, int line, int axis,
   return changed;
 }
 
+template <bool kClosedBit>
 __global__ void __launch_bounds__(kThreads)
     ccl_kernel(const int32_t* __restrict__ bits, int k_label, int k_outside,
                int k_fill, int32_t* __restrict__ okey3,
@@ -239,8 +245,12 @@ __global__ void __launch_bounds__(kThreads)
     }
     const bool support = mk || !o[p];
     const int owner = support ? f[p] : kBig;
-    const int closed = (bv[j] >> 2) & 1;
-    out[y * kWin + x] = owner * 8 + closed * 4 + mk * 2 + boundary;
+    if (kClosedBit) {
+      const int closed = (bv[j] >> 2) & 1;
+      out[y * kWin + x] = owner * 8 + closed * 4 + mk * 2 + boundary;
+    } else {
+      out[y * kWin + x] = owner * 4 + mk * 2 + boundary;
+    }
   }
   if (tid == 0) converged[blockIdx.x] = lab_conv && out_conv && fill_conv;
 }
@@ -250,7 +260,15 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int meterelf_ccl(const int32_t* bits, int K, int k_label,
                             int k_outside, int k_fill, int32_t* okey3,
                             uint8_t* converged, void* stream) {
-  ccl_kernel<<<K, kThreads, 0, (cudaStream_t)stream>>>(
+  ccl_kernel<true><<<K, kThreads, 0, (cudaStream_t)stream>>>(
       bits, k_label, k_outside, k_fill, okey3, converged);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int meterelf_propagate(const int32_t* bits, int K, int k_label,
+                                  int k_outside, int k_fill, int32_t* okey,
+                                  uint8_t* converged, void* stream) {
+  ccl_kernel<false><<<K, kThreads, 0, (cudaStream_t)stream>>>(
+      bits, k_label, k_outside, k_fill, okey, converged);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,88 @@
+// K8 `match_scores`: the full TM_CCOEFF score map of each image.
+//
+// Replaces meterelf_tpu/ops/pallas_match2.py match_scores_pallas_fused
+// (_fused_kernel): lightness [B, H, W] f32 (integer values 0..255),
+// template [th, tw] u8, tmean f32 -> scores = corr - tmean * box as f32
+// [B, oh, ow], where corr = sum L*T and box = sum L over the template
+// window at each offset. The scorer-only decode branch takes it
+// (pipeline/decode.py) and locates the first maximum afterwards.
+//
+// Exactness: with L' = L - 128 and T' = T - 128 (int8),
+//     corr = sum L'T' + 128 * sum L' + 128 * Tsum,   box = sum L' + 128*N,
+// and |corr| <= th * tw * 255^2 < 2^31 inside the gate (th <= 128,
+// tw <= 192), so corr and box are exact integers, and
+//     score = f32(corr) - tmean * f32(box)
+// with each operation rounded once (__fmul_rn, __fsub_rn; --fmad=false).
+// The TPU kernel sums its 119 row partials in f32, so its map differs
+// from this one in the last bits (tests/test_torch_general.py states the
+// measured tolerance); the plain version (ops/match.py) equals this one
+// bit for bit.
+//
+// What bounds it on the H100: integer multiply-adds, as K1 (47.63 G int8
+// MACs per flagship batch of 256). The design is K1's: one CTA per image
+// stages L' and T' in shared memory (153,400 bytes at the flagship
+// shape), and the correlation core of corr_dp4a.cuh computes 4 offsets a
+// thread with __dp4a; the whole map is written instead of an argmax.
+#include <cuda_runtime.h>
+
+#include "corr_dp4a.cuh"
+#include "meterelf_kernels.h"
+
+namespace {
+
+constexpr int kThreads = 512;
+
+__global__ void __launch_bounds__(kThreads)
+    match_kernel(const float* __restrict__ lightness, int H, int W,
+                 const uint8_t* __restrict__ tmpl, int th, int tw,
+                 int tsum, float tmean, float* __restrict__ scores) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const corr8::Layout g = corr8::layout(H, W, th, tw);
+  int8_t* sL = reinterpret_cast<int8_t*>(smem);
+  const int oh = H - th + 1, ow = W - tw + 1;
+  const int tid = threadIdx.x;
+  const float* img = lightness + (size_t)blockIdx.x * H * W;
+
+  for (int i = tid; i < H * g.ls; i += kThreads) {
+    const int y = i / g.ls, x = i - y * g.ls;
+    sL[i] = (int8_t)(x < W ? (int)img[y * W + x] - 128 : 0);
+  }
+  corr8::stage_template_and_sums(smem, g, H, W, tmpl, th, tw, kThreads);
+
+  const unsigned n128 = 128u * (unsigned)(th * tw);
+  const unsigned t128 = 128u * (unsigned)tsum;
+  float* out = scores + (size_t)blockIdx.x * oh * ow;
+  const int ngx = (ow + 3) / 4;
+  for (int it = tid; it < oh * ngx; it += kThreads) {
+    const int y = it / ngx;
+    const int x0 = (it - y * ngx) * 4;
+    int acc[4], box[4];
+    corr8::corr4(smem, g, ow, th, y, x0, acc, box);
+#pragma unroll
+    for (int dx = 0; dx < 4; ++dx) {
+      if (x0 + dx < ow) {
+        // unsigned: the terms wrap, the sum is the exact corr < 2^31
+        const int corr = (int)((unsigned)acc[dx]
+                               + 128u * (unsigned)box[dx] + t128);
+        const int bx = (int)((unsigned)box[dx] + n128);
+        out[y * ow + x0 + dx] = __fsub_rn(
+            __int2float_rn(corr), __fmul_rn(tmean, __int2float_rn(bx)));
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int meterelf_match_scores(const float* lightness, int B, int H,
+                                     int W, const uint8_t* tmpl, int th,
+                                     int tw, int tsum, float tmean,
+                                     float* scores, void* stream) {
+  const int bytes = corr8::layout(H, W, th, tw).bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  match_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+      lightness, H, W, tmpl, th, tw, tsum, tmean, scores);
+  return (int)cudaGetLastError();
+}

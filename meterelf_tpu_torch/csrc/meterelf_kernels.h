@@ -45,6 +45,20 @@ int meterelf_ccl(const int32_t* bits, int K, int k_label, int k_outside,
                  int k_fill, int32_t* okey3, uint8_t* converged,
                  void* stream);
 
+// K6: K3 without the closed bit (the general-geometry branch's CCL).
+// bits [K, 64, 64] i32, bits 0-1 read (masked | disk<<1). Out: okey
+// [K, 64, 64] i32 = owner*4 + masked*2 + boundary, converged [K] u8.
+int meterelf_propagate(const int32_t* bits, int K, int k_label,
+                       int k_outside, int k_fill, int32_t* okey,
+                       uint8_t* converged, void* stream);
+
+// K8: the TM_CCOEFF score map. lightness [B, H, W] f32 (integers
+// 0..255), tmpl [th, tw] u8 with tsum its sum, tmean f32. Out: scores
+// [B, H-th+1, W-tw+1] f32 = corr - tmean*box, corr and box exact.
+int meterelf_match_scores(const float* lightness, int B, int H, int W,
+                          const uint8_t* tmpl, int th, int tw, int tsum,
+                          float tmean, float* scores, void* stream);
+
 // K4: per window, marching-squares areas and boundary counts per owner;
 // keymax = max(area2*4096 + owner) over owners with a boundary pixel,
 // else -1; has_any = any masked pixel. okey3 [K, 4096] i32.

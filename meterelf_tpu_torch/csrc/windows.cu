@@ -35,6 +35,16 @@ struct WinGeom {
   int cr[kMaxDials][3];              // color range (h, l, s)
 };
 
+// Start of the 5x5 colour sample around centre c, as the JAX graph's
+// lax.dynamic_slice takes it: a negative start wraps (+64, Python-style
+// indexing), then the start is clamped so the sample stays in the window.
+// A centre at row/column 0 or 1 thus samples the window's far edge.
+__device__ __forceinline__ int sample_start(int c) {
+  int s = c - 2;
+  if (s < 0) s += kWin;
+  return min(max(s, 0), kWin - 5);
+}
+
 __global__ void __launch_bounds__(kThreads)
     windows_kernel(const int32_t* __restrict__ packed, int H, int W,
                    const int32_t* __restrict__ mx,
@@ -67,11 +77,11 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   if (tid < 3) {
-    // the 5x5 sample; a center within 2 px of the edge clamps like the
-    // reference path's dynamic slice
+    // the 5x5 sample; a center within 2 px of the edge moves it as the
+    // reference path's dynamic slice does (sample_start)
     const uint8_t* plane = tid == 0 ? sH : (tid == 1 ? sL : sS);
-    const int sx = min(max(g.cx[d] - 2, 0), kWin - 5);
-    const int sy = min(max(g.cy[d] - 2, 0), kWin - 5);
+    const int sx = sample_start(g.cx[d]);
+    const int sy = sample_start(g.cy[d]);
     int sum = 0;
     for (int yy = 0; yy < 5; ++yy)
       for (int xx = 0; xx < 5; ++xx) sum += plane[(sy + yy) * kWin + sx + xx];

@@ -1,26 +1,35 @@
-"""Host half of the JPEG coefficient feed: entropy decode only.
+"""Host half of the JPEG feed: entropy decode, and whole-frame decode for
+the frames the coefficient reader rejects.
 
 Port of the coefficient-feed part of meterelf_tpu/io/jpeg.py
 (``read_coefs_batch``, ``load_coef_feed``, ``load_coef_feed_shard``,
-``pack_crops``). The reader is ``io/native/coefs.c``, the JAX package's
-fast baseline reader without libjpeg, built by gcc at first use
-(``_build.coef_reader``). It decodes the Huffman stream of each frame's
-coefficient window on host threads (GIL-free); dequantisation, the
-IDCT, chroma upsampling and colour conversion run on the device
-(ops/jpegdec.py, csrc/jpeg.cu).
+``load_packed_crops_from_bytes``, ``_decode_bytes_full``, ``pack_crops``)
+over the port's own C readers in ``io/native/``, built by gcc at first
+use (``_build.host_jpeg``); none needs libjpeg:
 
-Two differences from the JAX package:
+- ``coefs.c`` decodes the Huffman stream of each frame's coefficient
+  window on host threads (GIL-free); dequantisation, the IDCT, chroma
+  upsampling and colour conversion run on the device (ops/jpegdec.py,
+  csrc/jpeg.cu). A stream its fast baseline reader rejects goes to the
+  general reader of ``decoder.c``, as the JAX reader hands it to libjpeg:
+  16-bit DQT, truncated streams and restart resync come back read.
+- ``decoder.c`` decodes whole frames as libjpeg does, bit for bit
+  (progressive and sequential scans, any sampling up to 2x2, grayscale,
+  RGB, truncation and restart recovery). ``load_coef_feed`` uses it for
+  the fallback slots: the first ``fb_slots`` frames the coefficient
+  reader rejects (progressive, 4:4:4 or 4:2:2, Adobe RGB, ...) are
+  decoded to packed crops that the decode step scatters over the
+  back-half's output.
 
-- **No arena reuse.** Every call returns freshly allocated arrays that
-  the caller owns; the JAX feed hands out thread-local double-buffered
-  arenas that a second later call on the same thread overwrites.
-- **No pixel fallback yet.** A frame the reader rejects (progressive,
-  4:4:4 or 4:2:2, 16-bit DQT, truncated, restart mismatch, a colour
-  space other than YCbCr, unexpected frame size) keeps zeroed rows and
-  gets ``load_ok=False``, and every fallback slot stays unused
-  (``fb_idx == len(datas)``). The JAX package decodes such frames with
-  libjpeg into the fallback slots; the port has no pixel decoder yet.
-  Cameras produce clean baseline 4:2:0 frames, which both read alike.
+What the general decoder still refuses, where libjpeg reads the stream:
+arithmetic coding, sampling factors above 2, and progressive streams
+whose first AC bands never reach their last refinement (libjpeg smooths
+those blocks). Such frames get ``load_ok=False``.
+
+One difference from the JAX package: every call returns freshly
+allocated arrays that the caller owns; the JAX feed hands out
+thread-local double-buffered arenas that a second later call on the same
+thread overwrites.
 """
 from __future__ import annotations
 
@@ -35,6 +44,9 @@ from ..types import Rect
 
 Feed = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
              np.ndarray, np.ndarray, np.ndarray]
+
+MAX_W = 4096    # the largest frame decode_bytes_full returns
+MAX_H = 4096
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -63,7 +75,7 @@ def read_coefs_batch(
     a coefficient is outside the compact range) are zero."""
     if compact and not plane_layout:
         raise ValueError("the compact wire format is plane-layout only")
-    lib = _build.coef_reader()
+    lib = _build.host_jpeg()
     n = len(datas)
     if plane_layout:
         yshape = (n, win.lbh * 8, win.lbw * 8)
@@ -111,8 +123,9 @@ def load_coef_feed(
     kernel (K10) takes the window (ops/jpegdec.backhalf_ok), else the
     block layout (the plain IDCT and K11). Returns (coef_y, coef_cb,
     coef_cr, qt, load_ok, fb_packed [fb_slots, PH, PW] i32, fb_idx
-    [fb_slots] i32); the fallback slots are all unused (module
-    docstring)."""
+    [fb_slots] i32): the fallback slots hold the frames the coefficient
+    reader rejects, decoded whole, with fb_idx their row (len(datas) for
+    an unused slot, which the step drops)."""
     win = coef_window(meter_rect, frame_wh[0], frame_wh[1])
     plane = backhalf_ok(win, tuple(pad_hw))
     return load_coef_feed_shard(
@@ -132,16 +145,73 @@ def load_coef_feed_shard(
 ) -> Feed:
     """load_coef_feed with the window (a CoefWindow as a plain tuple) and
     the layout chosen by the caller: compact planes when ``plane``, else
-    blocks. ``meter_rect`` is unused until the port has a pixel decoder
-    for the fallback slots; it is kept so that the call has the JAX
-    package's signature."""
-    del meter_rect
+    blocks. The first ``fb_slots`` frames the coefficient reader rejects
+    are decoded whole (load_packed_crops_from_bytes) into the fallback
+    slots, and load_ok is raised for those that decode."""
     cy, cb, cr, qt, ok = read_coefs_batch(
         datas, CoefWindow(*win_tuple), frame_wh, num_threads=num_threads,
         plane_layout=plane, compact=plane)
+    load_ok = ok.copy()
     fb_idx = np.full(fb_slots, len(datas), np.int32)
     fb_packed = np.zeros((fb_slots, pad_hw[0], pad_hw[1]), np.int32)
-    return cy, cb, cr, qt, ok, fb_packed, fb_idx
+    bad = np.nonzero(~ok)[0][:fb_slots]
+    if len(bad):
+        pk, pok = load_packed_crops_from_bytes(
+            [datas[i] for i in bad], meter_rect, pad_hw,
+            num_threads=num_threads)
+        for j, i in enumerate(bad):
+            if pok[j]:
+                fb_idx[j] = i
+                fb_packed[j] = pk[j]
+                load_ok[i] = True
+    return cy, cb, cr, qt, load_ok, fb_packed, fb_idx
+
+
+def load_packed_crops_from_bytes(
+    datas: Sequence[bytes],
+    meter_rect: Rect,
+    pad_hw: Tuple[int, int],
+    num_threads: int = 2,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode in-memory JPEGs straight to the step's staging layout:
+    [B, PH, PW] i32 packed BGR (b | g<<8 | r<<16), the meter rect at
+    [0:rh, 0:rw], zeros elsewhere; decode, crop and pack in one C pass
+    (pthreads, GIL-free). Returns (packed, load_ok): a frame that does
+    not decode, or does not cover the rect, gets load_ok=False. The pass
+    decodes whole frames, so the JAX package's whole-frame retry after a
+    failed region decode is already in it."""
+    lib = _build.host_jpeg()
+    n = len(datas)
+    ph, pw = pad_hw
+    (x0, y0) = meter_rect.top_left
+    out = np.zeros((n, ph, pw), np.int32)
+    ok = np.ones(n, np.int32)
+    if n:
+        arr_ptrs = (ctypes.c_char_p * n)(*datas)
+        arr_sizes = (ctypes.c_ulong * n)(*[len(d) for d in datas])
+        lib.mej_decode_packed_batch(
+            ctypes.addressof(arr_ptrs), ctypes.addressof(arr_sizes), n,
+            _ptr(out), pw, ph, x0, y0, meter_rect.width, meter_rect.height,
+            _ptr(ok), num_threads)
+    return out, ok == 0
+
+
+def decode_bytes_full(data: bytes) -> Optional[np.ndarray]:
+    """Whole-frame decode of in-memory JPEG bytes -> [H, W, 3] u8 BGR
+    (grayscale replicated), or None when the stream does not decode or
+    exceeds MAX_W x MAX_H (the JAX package's ``_decode_bytes_full``)."""
+    lib = _build.host_jpeg()
+    out = np.zeros(MAX_H * MAX_W * 3, np.uint8)
+    ok, w, h = (np.ones(1, np.int32) for _ in range(3))
+    arr_ptrs = (ctypes.c_char_p * 1)(data)
+    arr_sizes = (ctypes.c_ulong * 1)(len(data))
+    lib.mej_decode_full_batch(
+        ctypes.addressof(arr_ptrs), ctypes.addressof(arr_sizes), 1,
+        _ptr(out), MAX_W, MAX_H, _ptr(w), _ptr(h), _ptr(ok), 1)
+    if ok[0] != 0:
+        return None
+    w, h = int(w[0]), int(h[0])
+    return out[:h * w * 3].reshape(h, w, 3).copy()
 
 
 def compact_planes(plane: np.ndarray) -> np.ndarray:

@@ -1,22 +1,19 @@
 /* coefs.c — the coefficient reader of the port's JPEG feed.
  *
- * Entropy-decodes the DCT-coefficient window of baseline 8-bit YCbCr
- * 4:2:0 JPEG streams on the host (pthreads), for the device back-half
+ * Entropy-decodes the DCT-coefficient window of 8-bit YCbCr 4:2:0 JPEG
+ * streams on the host (pthreads), for the device back-half
  * (meterelf_tpu_torch/ops/jpegdec.py, csrc/jpeg.cu) to finish. A copy of
  * the fast baseline reader of meterelf_tpu/io/native/meterelf_jpeg.c
  * (mej_fast_coefs and its helpers, the compact packer and the batch
- * workers) that needs no libjpeg: it carries its own jpeg_natural_order
- * table and DCTSIZE2, and builds with
- *
- *     gcc -O3 -fPIC -shared -pthread coefs.c -o libmeterelf_coefs.so
- *
- * (meterelf_tpu_torch/io/native/build.py). Differences from the original:
- *  - no libjpeg suspension fallback: a stream the fast reader rejects
- *    (progressive, 4:4:4, 16-bit DQT, truncated, restart mismatch, ...)
- *    returns nonzero and the caller marks the frame not loaded;
- *  - the per-thread Huffman-table cache compares the stored counts and
- *    symbols with memcmp on a hash hit instead of trusting the 64-bit
- *    hash alone, so a hash collision cannot decode with a wrong table.
+ * workers) that needs no libjpeg. A stream the fast reader rejects
+ * (16-bit DQT, truncation, a restart mismatch, stray markers, missing
+ * tables, ...) goes to decoder.c's mej_general_coefs, as the JAX reader
+ * hands it to libjpeg's jpeg_read_coefficients; progressive, non-4:2:0
+ * and non-YCbCr streams stay rejected there, as in the JAX reader. The
+ * marker parser, the Huffman tables and their per-thread cache (which
+ * compares the stored definition with memcmp on a hash hit) live in
+ * jpeg_common.c. Built with decoder.c and jpeg_common.c into one library
+ * by meterelf_tpu_torch/_build.py (gcc, at first use).
  */
 
 #include <stdint.h>
@@ -24,74 +21,31 @@
 #include <string.h>
 #include <pthread.h>
 
-#define DCTSIZE2 64
-
-/* zigzag index -> natural (row-major) index, with 16 extra entries of 63
- * so that a corrupt run cannot index past the block (jutils.c) */
-static const int jpeg_natural_order[DCTSIZE2 + 16] = {
-     0,  1,  8, 16,  9,  2,  3, 10,
-    17, 24, 32, 25, 18, 11,  4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34,
-    27, 20, 13,  6,  7, 14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36,
-    29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46,
-    53, 60, 61, 54, 47, 55, 62, 63,
-    63, 63, 63, 63, 63, 63, 63, 63,
-    63, 63, 63, 63, 63, 63, 63, 63
-};
+#include "jpeg_common.h"
 
 /* ---------------- fast baseline coefficient reader ----------------
  *
  * Hand-rolled Huffman decode of the coefficient window for the common
  * case: a CLEAN (untruncated, restart-consistent) 8-bit baseline
- * sequential Huffman YCbCr 4:2:0 stream — i.e. every frame the camera
- * actually produces. Compared to driving libjpeg's
- * jpeg_read_coefficients it skips the whole-image virtual coefficient
- * arrays (~1 MB alloc + zero per 640x480 frame), the per-image
- * decompress-object lifecycle, and the chunked suspension machinery;
- * coefficients land straight in the caller's window buffer and the
- * entropy scan early-stops at the window's last iMCU row exactly like
- * the libjpeg path.
+ * sequential Huffman YCbCr 4:2:0 stream, i.e. every frame the camera
+ * actually produces. Coefficients land straight in the caller's window
+ * buffer and the entropy scan stops at the window's last iMCU row.
  *
- * Returns 0 only on a fully clean decode. ANY anomaly — truncation,
- * marker surprises, bogus Huffman runs, restart mismatch, unsupported
- * layout, frame-size or window mismatch — returns nonzero, and the
- * frame is reported as not loaded (this reader has no libjpeg path to
- * fall back to; the comments below that name one describe where the
- * original reader hands such a stream on).
+ * Returns 0 only on a fully clean decode. ANY anomaly (truncation,
+ * marker surprises, bogus Huffman runs, restart mismatch, 16-bit DQT,
+ * missing tables, unsupported layout) returns nonzero, and the caller
+ * hands the stream to decoder.c's general reader, which owns all
+ * failure semantics (libjpeg's jpeg_read_coefficients in the JAX
+ * package's reader).
  *
  * Output conventions match libjpeg's decoder: coefficients stored in
  * natural (raster) order via jpeg_natural_order (jdhuff.c does the
  * same), quant tables are the last DQT definitions preceding SOS in
- * natural order (as quant_tbl_ptrs holds them). */
-
-typedef struct {
-    uint8_t len;              /* code length for LUT hits; 0 = escape */
-    uint8_t sym;
-} mej_hlut;
-
-/* Multi-symbol AC table: ONE 10-bit peek resolves up to TWO
- * coefficients — Huffman code(s) plus appended value bits — when they
- * fit the window. Corpus stats (quality-92 webcam frames): 65% of AC
- * coefficients are followed by another short coefficient and 77% of
- * EOBs directly follow a short coefficient, so most hot-loop
- * iterations retire two symbols from a single table load. The 10-bit
- * key keeps the table at 8 KB (1024 x 8 B) — the same L1 footprint as
- * the single-symbol 12-bit table it replaces; a 12-bit x 8 B variant
- * measured SLOWER (32 KB/table thrashes L1 against the second
- * component's table and the stream data).
+ * natural order (as quant_tbl_ptrs holds them).
  *
- * Measured design notes (v5e host VM, corpus A/B, ~+-8% machine
- * noise): fusing a trailing EOB into the coefficient's entry (77% of
- * EOBs follow a short coefficient) is at-or-slightly-above parity and
- * retires the block's final two symbols in one load; full
- * (coef, coef) pairing — 65% of coefficients pair-fit — was tried in
- * two forms (per-kind branch chain, fully branchless masked stores)
- * and measured 15-20% SLOWER than the single-symbol loop despite 31%
- * fewer iterations: the extra per-iteration machinery loses more than
- * the saved table-load trips on this core. Kept single-symbol + EOB
- * fusion.
+ * The multi-symbol AC table (mej_htbl.lutp, built in jpeg_common.c):
+ * ONE 10-bit peek resolves a coefficient (Huffman code plus value bits)
+ * and a directly following EOB when they fit the window.
  *
  * u64 entry layout:
  *   bits 0-5   nb     total bits consumed, value bits and any fused
@@ -107,15 +61,6 @@ typedef struct {
  *                     on index 63 (the block ends there; the EOB code
  *                     in the entry belongs to the next block)
  *   bits 40-51 v1    (12-bit signed; |coef| <= 1023 for size <= 10) */
-typedef struct {
-    mej_hlut lut[4096];       /* first 12 bits -> (len, symbol) */
-    uint64_t lutp[1024];      /* first 10 bits -> up to 2 coefficients */
-    int32_t maxcode[17];      /* per length; -1 when no codes */
-    int32_t mincode[17];
-    int32_t valptr[17];
-    uint8_t huffval[256];
-    int valid;
-} mej_htbl;
 
 static inline int mej_extend(uint32_t v, int s)
 {
@@ -125,153 +70,6 @@ static inline int mej_extend(uint32_t v, int s)
      * arithmetic form is measurably faster in the hot loop */
     int32_t neg = (int32_t)(v >> (s - 1)) - 1;   /* 0 or -1 */
     return (int32_t)v + (neg & (1 - (1 << s)));
-}
-
-static int mej_htbl_build(mej_htbl *t, const uint8_t counts[16],
-                          const uint8_t *symbols, int nsym)
-{
-    memset(t->lut, 0, sizeof(t->lut));
-    int32_t code = 0;
-    int k = 0;
-    for (int l = 1; l <= 16; l++) {
-        t->valptr[l] = k;
-        t->mincode[l] = code;
-        for (int i = 0; i < counts[l - 1]; i++, k++) {
-            if (k >= nsym || k >= 256)
-                return -1;
-            t->huffval[k] = symbols[k];
-            if (code >= (1 << l))
-                return -1;          /* overfull table */
-            if (l <= 12) {
-                int shift = 12 - l;
-                int base = code << shift;
-                for (int f = 0; f < (1 << shift); f++) {
-                    t->lut[base + f].len = (uint8_t)l;
-                    t->lut[base + f].sym = symbols[k];
-                }
-            }
-            code++;
-        }
-        t->maxcode[l] = counts[l - 1] ? code - 1 : -1;
-        code <<= 1;
-    }
-    /* second pass: the pair table (interpreting sym as (r,s); built
-     * unconditionally — DC decode never consults lutp). The per-thread
-     * table cache amortizes this across a stream batch: webcam feeds
-     * reuse identical DHT definitions, so each distinct table is built
-     * once per thread, not once per image. */
-    memset(t->lutp, 0, sizeof(t->lutp));
-    for (int key = 0; key < 1024; key++) {
-        /* decode the symbol from the top of the 10-bit window via the
-         * 12-bit lut (bottom 2 bits zero-padded) */
-        mej_hlut e1 = t->lut[key << 2];
-        if (!e1.len || e1.len > 10)
-            continue;               /* full escape */
-        int r1 = e1.sym >> 4, sz1 = e1.sym & 15;
-        if (sz1 == 0) {
-            if (r1 == 15)           /* ZRL */
-                t->lutp[key] = (uint64_t)e1.len | (1ull << 6);
-            else                    /* bare EOB */
-                t->lutp[key] = (uint64_t)e1.len | (1ull << 8);
-            continue;
-        }
-        if (e1.len + sz1 > 10) {    /* code resolved, value pending */
-            t->lutp[key] = (uint64_t)e1.len | (2ull << 6)
-                           | ((uint64_t)r1 << 10)
-                           | ((uint64_t)(sz1 & 0xFFF) << 40);
-            continue;
-        }
-        int nb1 = e1.len + sz1;
-        uint32_t vbits1 = ((uint32_t)key >> (10 - nb1))
-                          & ((1u << sz1) - 1);
-        int v1 = mej_extend(vbits1, sz1);
-        uint64_t ent = (uint64_t)nb1
-                       | (1ull << 9) | ((uint64_t)r1 << 10)
-                       | ((uint64_t)nb1 << 16)
-                       | ((uint64_t)(v1 & 0xFFF) << 40);
-        /* fuse a directly-following EOB when its code fits the
-         * remaining window bits (77% of corpus EOBs do) */
-        int rem = 10 - nb1;
-        if (rem >= 2) {
-            int key2 = ((key << nb1) & 1023) << 2;    /* re-aligned */
-            mej_hlut e2 = t->lut[key2];
-            if (e2.len && e2.len <= rem
-                && (e2.sym & 15) == 0 && (e2.sym >> 4) != 15)
-                ent = (ent & ~63ull) | (uint64_t)(nb1 + e2.len)
-                      | (1ull << 8);
-        }
-        t->lutp[key] = ent;
-    }
-    t->valid = 1;
-    return 0;
-}
-
-/* Per-thread Huffman-table cache. Building the widened LUTs costs
- * ~8 us/table; a camera stream reuses identical DHT payloads frame
- * after frame, so cache built tables keyed by an FNV-1a hash of the
- * raw definition. A hash hit counts only when the stored definition
- * (counts and symbols) is byte-equal to the requested one, so a hash
- * collision builds a table of its own instead of decoding with a wrong
- * one. Per-thread (the batch decoder is pthreaded), and
- * slots claimed by the CURRENT stream are never evicted within it
- * (generation counter), so table pointers stay valid across the whole
- * entropy scan. 12 slots >> the 8 baseline table ids. */
-typedef struct {
-    uint64_t hash;
-    uint32_t gen;                 /* stream generation that claimed it */
-    int used;
-    int nsym;                     /* the raw definition the table was */
-    uint8_t counts[16];           /* built from, compared on a hash hit */
-    uint8_t syms[256];
-    mej_htbl tbl;
-} mej_tslot;
-
-static __thread mej_tslot mej_tcache[12];
-static __thread uint32_t mej_tgen;
-static __thread int mej_tvictim;
-
-static uint64_t mej_thash(const uint8_t counts[16], const uint8_t *syms,
-                          int nsym)
-{
-    uint64_t h = 1469598103934665603ull;
-    for (int i = 0; i < 16; i++)
-        h = (h ^ counts[i]) * 1099511628211ull;
-    for (int i = 0; i < nsym; i++)
-        h = (h ^ syms[i]) * 1099511628211ull;
-    h = (h ^ (uint64_t)nsym) * 1099511628211ull;
-    return h | 1;                 /* 0 marks an empty slot */
-}
-
-static const mej_htbl *mej_htbl_cached(const uint8_t counts[16],
-                                       const uint8_t *syms, int nsym)
-{
-    uint64_t h = mej_thash(counts, syms, nsym);
-    for (int i = 0; i < 12; i++)
-        if (mej_tcache[i].used && mej_tcache[i].hash == h
-            && mej_tcache[i].nsym == nsym
-            && memcmp(mej_tcache[i].counts, counts, 16) == 0
-            && memcmp(mej_tcache[i].syms, syms, (size_t)nsym) == 0) {
-            mej_tcache[i].gen = mej_tgen;
-            return &mej_tcache[i].tbl;
-        }
-    for (int tries = 0; tries < 12; tries++) {
-        mej_tslot *s = &mej_tcache[mej_tvictim];
-        mej_tvictim = (mej_tvictim + 1) % 12;
-        if (s->used && s->gen == mej_tgen)
-            continue;             /* claimed by the current stream */
-        if (mej_htbl_build(&s->tbl, counts, syms, nsym)) {
-            s->used = 0;
-            return NULL;
-        }
-        s->hash = h;
-        s->gen = mej_tgen;
-        s->used = 1;
-        s->nsym = nsym;
-        memcpy(s->counts, counts, 16);
-        memcpy(s->syms, syms, (size_t)nsym);
-        return &s->tbl;
-    }
-    return NULL;                  /* all slots claimed (cannot happen) */
 }
 
 typedef struct {
@@ -511,162 +309,59 @@ static int mej_fast_coefs(const unsigned char *data, unsigned long size,
                           int16_t *coefY, int16_t *coefCb,
                           int16_t *coefCr, uint16_t *qt /* [3*64] */)
 {
-    const uint8_t *p = data, *end = data + size;
-    uint16_t qtab[4][64];
-    int qdef[4] = {0, 0, 0, 0};
-    const mej_htbl *dctbl[4], *actbl[4];
-    int w = 0, h = 0, ncomp = 0, dri = 0;
-    int comp_tq[3] = {0, 0, 0}, comp_id[3] = {0, 0, 0};
-    int comp_dc[3] = {0, 0, 0}, comp_ac[3] = {0, 0, 0};
-    int have_sof = 0;
-    int saw_jfif = 0, saw_adobe = 0, adobe_transform = 0;
-    memset(dctbl, 0, sizeof(dctbl));
-    memset(actbl, 0, sizeof(actbl));
-    mej_tgen++;                 /* new stream: un-claim cached tables */
-
-    if (size < 4 || p[0] != 0xFF || p[1] != 0xD8)
+    mej_src s;
+    mej_hdr hd;
+    mej_htbl_new_generation();  /* new stream: un-claim cached tables */
+    if (mej_src_start(&s, data, size, &hd)
+        || mej_read_markers(&s, &hd) != MEJ_AT_SOS)
         return -1;
-    p += 2;
-    for (;;) {
-        /* next marker (skip fill bytes) */
-        if (p + 2 > end)
+    /* the camera's layout only: baseline or extended sequential, 8-bit
+     * tables, YCbCr 4:2:0 in one interleaved full-band scan in SOF
+     * order, every table defined, no stray markers before the scan */
+    if ((hd.sof != 0xC0 && hd.sof != 0xC1) || hd.precision != 8
+        || hd.ncomp != 3 || hd.q16 || hd.odd_markers || hd.ns != 3
+        || hd.Ss != 0 || hd.Se != 63 || hd.Ah != 0 || hd.Al != 0)
+        return -1;
+    const mej_htbl *ydc = NULL, *yac = NULL, *bdc = NULL, *bac = NULL;
+    const mej_htbl *rdc = NULL, *rac = NULL;
+    for (int c = 0; c < 3; c++) {
+        const mej_comp *cp = &hd.comp[c];
+        if (cp->h != (c ? 1 : 2) || cp->v != (c ? 1 : 2) || cp->tq > 3
+            || !hd.qdef[cp->tq] || hd.scomp[c] != c
+            || hd.sdc[c] > 3 || hd.sac[c] > 3
+            || !hd.dht[0][hd.sdc[c]].defined
+            || !hd.dht[1][hd.sac[c]].defined)
             return -1;
-        if (*p != 0xFF)
+        const mej_dht *d = &hd.dht[0][hd.sdc[c]];
+        const mej_dht *a = &hd.dht[1][hd.sac[c]];
+        const mej_htbl *dt = mej_htbl_cached(d->counts, d->syms, d->nsym);
+        const mej_htbl *at = mej_htbl_cached(a->counts, a->syms, a->nsym);
+        if (!dt || !at)
             return -1;
-        while (p < end && *p == 0xFF)
-            p++;
-        if (p >= end)
-            return -1;
-        uint8_t m = *p++;
-        if (m == 0xD8 || m == 0xD9 || (m >= 0xD0 && m <= 0xD7) || m == 0x01)
-            return -1;            /* unexpected before SOS */
-        if (p + 2 > end)
-            return -1;
-        unsigned int len = ((unsigned int)p[0] << 8) | p[1];
-        if (len < 2 || p + len > end)
-            return -1;
-        const uint8_t *q = p + 2, *qend = p + len;
-        p += len;
-        if (m == 0xC0 || m == 0xC1) {            /* SOF0/1 */
-            if (have_sof || qend - q != 6 + 3 * 3)
-                return -1;        /* exact length: libjpeg ERREXITs on
-                                   * any SOF length anomaly (jdmarker
-                                   * get_sof "Bogus marker length") */
-            if (q[0] != 8)
-                return -1;
-            h = (q[1] << 8) | q[2];
-            w = (q[3] << 8) | q[4];
-            ncomp = q[5];
-            q += 6;
-            if (ncomp != 3 || qend - q < 9 || w <= 0 || h <= 0)
-                return -1;
-            for (int c = 0; c < 3; c++) {
-                comp_id[c] = q[0];
-                int samp = q[1];
-                comp_tq[c] = q[2];
-                q += 3;
-                if (comp_tq[c] > 3)
-                    return -1;
-                if (c == 0 && samp != 0x22)
-                    return -1;
-                if (c > 0 && samp != 0x11)
-                    return -1;
-            }
-            have_sof = 1;
-        } else if (m == 0xC4) {                  /* DHT */
-            while (q < qend) {
-                if (qend - q < 17)
-                    return -1;
-                int tc = q[0] >> 4, th = q[0] & 15;
-                if (tc > 1 || th > 3)
-                    return -1;
-                uint8_t counts[16];
-                int nsym = 0;
-                for (int i = 0; i < 16; i++) {
-                    counts[i] = q[1 + i];
-                    nsym += counts[i];
-                }
-                q += 17;
-                if (qend - q < nsym || nsym > 256)
-                    return -1;
-                const mej_htbl *t = mej_htbl_cached(counts, q, nsym);
-                if (!t)
-                    return -1;
-                if (tc)
-                    actbl[th] = t;
-                else
-                    dctbl[th] = t;
-                q += nsym;
-            }
-        } else if (m == 0xDB) {                  /* DQT */
-            while (q < qend) {
-                int pq = q[0] >> 4, tq = q[0] & 15;
-                if (pq != 0 || tq > 3)
-                    return -1;    /* 16-bit tables: libjpeg path */
-                q++;
-                if (qend - q < 64)
-                    return -1;
-                for (int i = 0; i < 64; i++)
-                    qtab[tq][jpeg_natural_order[i]] = q[i];
-                qdef[tq] = 1;
-                q += 64;
-            }
-        } else if (m == 0xDD) {                  /* DRI */
-            if (qend - q != 2)
-                return -1;        /* libjpeg requires length == 4 */
-            dri = (q[0] << 8) | q[1];
-        } else if (m == 0xDA) {                  /* SOS */
-            if (!have_sof || qend - q != 1 + 2 * 3 + 3 || q[0] != 3)
-                return -1;        /* exact length, like libjpeg */
-            q++;
-            for (int c = 0; c < 3; c++) {
-                if (q[0] != comp_id[c])
-                    return -1;    /* comps out of SOF order: fallback */
-                comp_dc[c] = q[1] >> 4;
-                comp_ac[c] = q[1] & 15;
-                if (comp_dc[c] > 3 || comp_ac[c] > 3)
-                    return -1;
-                q += 2;
-            }
-            if (q[0] != 0 || q[1] != 63 || q[2] != 0)
-                return -1;        /* not sequential full-band */
-            break;                /* entropy data follows at p */
-        } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE) {
-            /* APPn/COM are skipped, but APP0/APP14 feed libjpeg's
-             * color-space determination (jdmarker examine_app0/14):
-             * a stream that would NOT resolve to JCS_YCbCr must take
-             * the libjpeg pixel path (the device graph hardwires
-             * YCbCr->BGR) */
-            if (m == 0xE0 && qend - q >= 14
-                && q[0] == 0x4A && q[1] == 0x46 && q[2] == 0x49
-                && q[3] == 0x46 && q[4] == 0)
-                saw_jfif = 1;     /* "JFIF\0", >= APP0_DATA_LEN */
-            if (m == 0xEE && qend - q >= 12
-                && q[0] == 0x41 && q[1] == 0x64 && q[2] == 0x6F
-                && q[3] == 0x62 && q[4] == 0x65) {
-                saw_adobe = 1;    /* "Adobe", >= APP14_DATA_LEN */
-                adobe_transform = q[11];
-            }
-        } else {
-            return -1;            /* SOF2+, DAC, DNL, ...: libjpeg path */
-        }
+        for (int i = 0; i < d->nsym; i++)
+            if (d->syms[i] > 15)
+                return -1;        /* libjpeg refuses such DC tables */
+        if (c == 0) { ydc = dt; yac = at; }
+        else if (c == 1) { bdc = dt; bac = at; }
+        else { rdc = dt; rac = at; }
+        for (int i = 0; i < 64; i++)
+            qt[c * 64 + i] = hd.qtab[cp->tq][i];
     }
-
-    /* color space must resolve to JCS_YCbCr under libjpeg's rules
-     * (jdapimin.c default_decompress_parms, 3-component case):
-     * JFIF seen -> YCbCr; else Adobe transform 1 -> YCbCr (0 -> RGB,
-     * others get a libjpeg warning we don't replicate -> fallback);
-     * neither marker -> component-ID heuristic, where IDs 'R','G','B'
-     * mean RGB.  Anything non-YCbCr falls back to the pixel path. */
-    if (!saw_jfif) {
-        if (saw_adobe) {
-            if (adobe_transform != 1)
+    /* colour space must resolve to JCS_YCbCr (jdapimin.c
+     * default_decompress_parms): JFIF -> YCbCr; else an Adobe marker with
+     * transform 1 (0 means RGB; other values are left to the general
+     * reader); neither -> the component IDs, where 'R','G','B' is RGB */
+    if (!hd.saw_jfif) {
+        if (hd.saw_adobe) {
+            if (hd.adobe_transform != 1)
                 return -1;
-        } else if (comp_id[0] == 0x52 && comp_id[1] == 0x47
-                   && comp_id[2] == 0x42) {
+        } else if (hd.comp[0].id == 0x52 && hd.comp[1].id == 0x47
+                   && hd.comp[2].id == 0x42) {
             return -1;
         }
     }
+    int w = hd.w, h = hd.h, dri = hd.dri;
+    const uint8_t *p = s.p, *end = s.end;
 
     /* frame/window geometry (mirrors the libjpeg path's checks) */
     if (exp_w > 0 && (w != exp_w || h != exp_h))
@@ -681,13 +376,6 @@ static int mej_fast_coefs(const unsigned char *data, unsigned long size,
         || lbx0 + lbw > wb_pad || lby0 + lbh > hb_pad
         || cbx0 + cbw > cbw_img || cby0 + cbh > cbh_img)
         return -1;
-    for (int c = 0; c < 3; c++) {
-        if (!qdef[comp_tq[c]] || !dctbl[comp_dc[c]]
-            || !actbl[comp_ac[c]])
-            return -1;
-        for (int i = 0; i < 64; i++)
-            qt[c * 64 + i] = qtab[comp_tq[c]][i];
-    }
 
     mej_br br;
     br.p = p;
@@ -702,9 +390,6 @@ static int mej_fast_coefs(const unsigned char *data, unsigned long size,
         stop_imcu = mcuy;
     int pred[3] = {0, 0, 0};
     int togo = dri, rstn = 0;
-    const mej_htbl *ydc = dctbl[comp_dc[0]], *yac = actbl[comp_ac[0]];
-    const mej_htbl *bdc = dctbl[comp_dc[1]], *bac = actbl[comp_ac[1]];
-    const mej_htbl *rdc = dctbl[comp_dc[2]], *rac = actbl[comp_ac[2]];
 
     for (int my = 0; my < stop_imcu; my++) {
         for (int mx = 0; mx < mcux; mx++) {
@@ -836,6 +521,12 @@ static void *mej_coef_worker(void *arg)
             job->lbx0, job->lby0, job->lbw, job->lbh,
             job->exp_w, job->exp_h, job->plane,
             py, pb, pr, job->qt + (size_t)i * 3 * 64);
+        if (job->ok[i])           /* libjpeg's path in the JAX reader */
+            job->ok[i] = mej_general_coefs(
+                job->datas[i], job->sizes[i],
+                job->lbx0, job->lby0, job->lbw, job->lbh,
+                job->exp_w, job->exp_h, job->plane,
+                py, pb, pr, job->qt + (size_t)i * 3 * 64);
         if (job->cmpY && job->plane && job->ok[i] == 0) {
             int yr = job->lbh * 8, yc = job->lbw * 8;
             int cr2 = job->lbh * 4, cc = job->lbw * 4;

@@ -1,14 +1,16 @@
 """Needle angles and the 4-dial value, in plain torch (f64 on the
 device).
 
-Port of meterelf_tpu/ops/angles.py read_dial_from_okey, _read_dial_core
-and assemble_value, batched over [B, D] windows instead of vmapped. The
-needle region is derived at the static disk and annulus slots straight
-from okey3 and the stats key (big blob: owner == selected, else the
-closed mask); then the momentum, the half-plane tip filter, the cyclic
-trim over the static (angle, sqdist) slot order and the weighted mean,
-all in float64 as the reference computes them (see the original module
-for why each step is exact).
+Port of meterelf_tpu/ops/angles.py read_dial_from_okey, read_dial,
+_read_dial_core and assemble_value, batched over [B, D] windows instead
+of vmapped. On the quad branch the needle region is derived at the
+static disk and annulus slots straight from okey3 and the stats key (big
+blob: owner == selected, else the closed mask); on the general branch it
+is gathered from components.finalize's needle region. Then the
+momentum, the half-plane tip filter, the cyclic trim over the static
+(angle, sqdist) slot order and the weighted mean, all in float64 as the
+reference computes them (see the original module for why each step is
+exact).
 """
 from __future__ import annotations
 
@@ -35,6 +37,19 @@ def read_dials(okey3: torch.Tensor, keymax: torch.Tensor,
     needle = region(pa.disk_idx) & pa.disk_valid
     tip = region(pa.ann_idx) & pa.ann_valid
     return _read_dial_core(needle, tip, pa)
+
+
+def read_dials_region(region: torch.Tensor, pa: DeviceParams
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """angles.read_dial per window: needle region [B, D, 4096] bool ->
+    (position f64 [B, D], readable bool [B, D])."""
+    B, D = region.shape[:2]
+
+    def at(idx: torch.Tensor) -> torch.Tensor:
+        return region.gather(2, idx.long()[None].expand(B, D, -1))
+
+    return _read_dial_core(at(pa.disk_idx) & pa.disk_valid,
+                           at(pa.ann_idx) & pa.ann_valid, pa)
 
 
 def _read_dial_core(needle: torch.Tensor, tip: torch.Tensor,

@@ -17,12 +17,22 @@ the same:
   once a pass changes no window of the batch: the passes are monotone,
   so that is the state and the flag of running every pass.
 
-``propagate`` is the plain version of K3 (ops/ccl.py); ``cell_contrib``
-feeds the plain version of K4 (ops/stats.py).
+``propagate`` is the plain version of K3 and, with pack_closed=False,
+of K6 (ops/ccl.py); ``cell_contrib`` feeds the plain version of K4
+(ops/stats.py).
+
+``finalize`` ports ``_finalize`` with ``_stats_sort``
+(components.py:408-499, :553-595), the stage after K6 on the
+general-geometry branch: the largest top-level component per window
+(through one sort of packed keys, over the static per-dial stats box
+when there is one) and the reference's needle region. The JAX package
+runs it in XLA; here it is torch. JAX sorts the keys as u16 when they
+fit; the port sorts the same non-negative keys as i32, which orders them
+alike.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -121,11 +131,15 @@ def _iterate(k_max: int, body: Callable, x0: torch.Tensor
     return x, eq
 
 
-def propagate(bits: torch.Tensor, caps: Optional[Sequence[int]] = None
+def propagate(bits: torch.Tensor, caps: Optional[Sequence[int]] = None,
+              pack_closed: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[K, 64, 64] i32 window bits (masked | disk<<1 | closed<<2) ->
     (okey3 i32 [K, 64, 64], converged bool [K]), okey3 = owner*8 +
-    closed*4 + masked*2 + boundary with owner = 4096 off the support."""
+    closed*4 + masked*2 + boundary with owner = 4096 off the support.
+    pack_closed=False: okey = owner*4 + masked*2 + boundary (the key of
+    components._propagate_xla and pallas_ccl.propagate; bit 2 of the
+    input is not read)."""
     k_label, k_outside, k_fill = caps or (K_LABEL, K_OUTSIDE, K_FILL)
     dev = bits.device
     masked = (bits & 1) != 0
@@ -162,9 +176,10 @@ def propagate(bits: torch.Tensor, caps: Optional[Sequence[int]] = None
 
     owner, fill_eq = _iterate(k_fill, fill, labels)
     boundary = masked & _any8(outside)
-    okey3 = (torch.where(support, owner, big) * 8 + closed * 4
-             + masked.to(torch.int32) * 2 + boundary.to(torch.int32))
-    return okey3, lab_eq & out_eq & fill_eq
+    low = masked.to(torch.int32) * 2 + boundary.to(torch.int32)
+    own = torch.where(support, owner, big)
+    okey = own * 8 + closed * 4 + low if pack_closed else own * 4 + low
+    return okey, lab_eq & out_eq & fill_eq
 
 
 def cell_contrib(owner: torch.Tensor) -> torch.Tensor:
@@ -189,3 +204,89 @@ def cell_contrib(owner: torch.Tensor) -> torch.Tensor:
     return (F.pad(cls * e00, (0, 1, 0, 1)) + F.pad(cls * a01, (1, 0, 0, 1))
             + F.pad(cls * a10, (0, 1, 1, 0))
             + F.pad(cls * a11, (1, 0, 1, 0)))
+
+
+class ComponentResult(NamedTuple):
+    has_any: torch.Tensor        # [K] bool: masked window nonempty
+    needle_region: torch.Tensor  # [K, 64, 64] bool: the reference's mask
+    converged: torch.Tensor      # [K] bool: propagation reached fixpoint
+
+
+StatsBox = Tuple[Tuple[Tuple[int, int], ...], int]
+
+
+def _stats_sort(ol: torch.Tensor, bbit: torch.Tensor, contrib: torch.Tensor,
+                sent: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The largest component through one sort of key = owner*16 +
+    boundary*4 + contrib and prefix sums over its runs
+    (components._stats_sort) -> (sel, area2_sel, sel_valid) per row."""
+    K = ol.shape[0]
+    dev = ol.device
+    spk = torch.sort(ol * 16 + bbit * 4 + contrib, dim=1).values
+    sk = spk >> 4
+    nxt = torch.cat([sk[:, 1:], torch.full((K, 1), -1, dtype=sk.dtype,
+                                           device=dev)], 1)
+    run_end = sk != nxt
+    cum = torch.cumsum((spk & 3) + (((spk >> 2) & 1) << 16), dim=1)
+    m = torch.cummax(torch.where(run_end, cum, torch.zeros_like(cum)),
+                     dim=1).values
+    prev = torch.cat([torch.zeros((K, 1), dtype=m.dtype, device=dev),
+                      m[:, :-1]], 1)
+    tot = cum - prev
+    area2 = tot & 0xFFFF
+    bc = tot >> 16
+    valid = run_end & (sk < sent) & (bc > 0)
+    key2 = torch.where(valid, area2 * (sent + 1) + sk,
+                       torch.full_like(area2, -1))
+    i_sel = torch.argmax(key2, dim=1, keepdim=True)    # first maximum
+    return (sk.gather(1, i_sel)[:, 0], area2.gather(1, i_sel)[:, 0],
+            valid.gather(1, i_sel)[:, 0])
+
+
+def finalize(okey: torch.Tensor, masked: torch.Tensor, closed: torch.Tensor,
+             converged: torch.Tensor, static_bbox: Optional[StatsBox] = None
+             ) -> ComponentResult:
+    """okey [K, 64, 64] i32 (owner*4 + masked*2 + boundary), masked and
+    closed [K, 64, 64] bool, converged [K] -> ComponentResult
+    (components._finalize, stats="sort"). With ``static_bbox`` ((ox, oy)
+    per dial, SB) the stats cover each dial's SB x SB box (K a multiple
+    of the dial count) and labels remap to box-local indices, a monotone
+    map that keeps the selection and its tie-break."""
+    K = okey.shape[0]
+    dev = okey.device
+    owner = okey >> 2                          # N at non-support pixels
+    contrib = cell_contrib(owner)
+    bbit = okey & 1
+    if static_bbox is not None:
+        origins, sb = static_bbox
+        D = len(origins)
+        sent = sb * sb
+
+        def pack(x: torch.Tensor) -> torch.Tensor:
+            x4 = x.reshape(K // D, D, W, W)
+            return torch.stack([x4[:, i, oy:oy + sb, ox:ox + sb]
+                                for i, (ox, oy) in enumerate(origins)],
+                               dim=1).reshape(K, sent)
+
+        oy_r = torch.tensor([origins[k % D][1] for k in range(K)],
+                            dtype=torch.int32, device=dev)
+        ox_r = torch.tensor([origins[k % D][0] for k in range(K)],
+                            dtype=torch.int32, device=dev)
+        ow = pack(owner)
+        ol = torch.where(ow < N, (ow // W - oy_r[:, None]) * sb
+                         + (ow % W - ox_r[:, None]),
+                         torch.full_like(ow, sent))
+        sel_l, area2_sel, sel_valid = _stats_sort(ol, pack(bbit),
+                                                  pack(contrib), sent)
+        sel = (sel_l // sb + oy_r) * W + sel_l % sb + ox_r
+    else:
+        sel, area2_sel, sel_valid = _stats_sort(
+            owner.reshape(K, N), bbit.reshape(K, N), contrib.reshape(K, N),
+            N)
+    sel = torch.where(sel_valid, sel, torch.full_like(sel, N))
+    big_blob = sel_valid & (area2_sel > 200)      # contourArea > 100
+    fill_sel = (owner == sel[:, None, None]) & (sel[:, None, None] < N)
+    return ComponentResult(
+        has_any=masked.flatten(1).any(1),
+        needle_region=torch.where(big_blob[:, None, None], fill_sel, closed),
+        converged=converged)

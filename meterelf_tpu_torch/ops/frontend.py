@@ -22,7 +22,7 @@ raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +33,80 @@ from .color import lightness_from_planes, unpack_planes
 from .launch import check_cuda, raise_on_error, stream_of
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+
+# The JAX package's frontend gate (pallas_frontend.py:132-168), copied
+# with its constants: the decode takes the frontend branches for exactly
+# the geometries the JAX decode does. XG is the TPU kernel's default
+# correlation x-group.
+XG = 32
+STAGE = 256
+SW_H = 136
+SW_W = 256
+
+
+class FrontendGeom(NamedTuple):
+    """pallas_frontend.FrontendGeom: the TPU kernel's per-camera geometry
+    (kept whole so that the gate is held equal field by field)."""
+
+    crop_h: int
+    crop_w: int
+    th: int
+    tw: int
+    oh: int
+    ow: int
+    blk: int
+    bank_k: int
+    nx: int
+    ow_pad: int
+    xg: int
+
+
+def geom_for(crop_h: int, crop_w: int,
+             th: int, tw: int) -> Optional[FrontendGeom]:
+    """pallas_frontend.geom_for: the geometry, or None when the crop and
+    template cannot ride the TPU kernel's layout (staging inside
+    [STAGE, STAGE], ow <= 128, ceil8(th) <= 128, every x-group slice
+    inside the transposed image, 64 <= th <= SW_H and 64 <= tw <= SW_W so
+    that the dial windows lie inside the superwindow)."""
+    oh, ow = crop_h - th + 1, crop_w - tw + 1
+    if oh < 1 or not (1 <= ow <= 128):
+        return None
+    xg = XG
+    blk = -(-th // 8) * 8
+    bank_k = -(-(tw + xg) // 32) * 32
+    nx = -(-ow // xg)
+    ow_pad = -(-ow // 8) * 8
+    if not (crop_h <= STAGE and crop_w <= STAGE
+            and blk <= 128
+            and (nx - 1) * xg + bank_k <= STAGE + 64
+            and 64 <= th <= SW_H and 64 <= tw <= SW_W):
+        return None
+    return FrontendGeom(crop_h, crop_w, th, tw, oh, ow,
+                        blk, bank_k, nx, ow_pad, xg)
+
+
+def fits(crop_h: int, crop_w: int, th: int, tw: int) -> bool:
+    """pallas_frontend.fits."""
+    return geom_for(crop_h, crop_w, th, tw) is not None
+
+
+def smem_bytes(H: int, W: int, th: int, tw: int) -> int:
+    """Shared memory K1 stages for one image (frontend_layout in
+    csrc/frontend.cu): L - 128 rows of round16(W + 8) bytes, the template
+    rows of round4(tw) bytes, and the per-row window sums."""
+    def up(x: int, m: int) -> int:
+        return -(-x // m) * m
+
+    off_rw = up(H * up(W + 8, 16) + th * up(tw, 4), 16)
+    return off_rw + (H * (W - tw + 1) + 4) * 4
+
+
+def frontend_ok(crop_h: int, crop_w: int, th: int, tw: int) -> bool:
+    """The frontend branches' gate: the JAX package's, and K1's staging
+    within a block's shared memory (never the binding condition inside
+    the JAX gate: its largest geometries stage under 218 KB)."""
+    return (fits(crop_h, crop_w, th, tw)
+            and smem_bytes(crop_h, crop_w, th, tw) <= SMEM_LIMIT)
 
 
 def score_constants(template_u8: np.ndarray) -> Tuple[float, float]:
@@ -77,29 +151,42 @@ def _corr8(lp: torch.Tensor, tp: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def corr_box8(lp: torch.Tensor, tp: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(corr8 i32, box' i64) [B, oh, ow] of L' = lp and T' = tp (int32 in
+    [-128, 127]): sum L'T' and sum L' over the template window at every
+    offset, both exact (box' from an integral image)."""
+    th, tw = tp.shape
+    ii = F.pad(lp.to(torch.int64).cumsum(1).cumsum(2), (1, 0, 1, 0))
+    box = (ii[:, th:, tw:] - ii[:, :-th, tw:] - ii[:, th:, :-tw]
+           + ii[:, :-th, :-tw])
+    return _corr8(lp, tp), box
+
+
 def frontend_plain(packed: torch.Tensor, template_u8: torch.Tensor,
                    c1: float, c0: float
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain torch frontend: [B, H, W] i32 packed crops, [th, tw] u8
     template -> (max_val f32 [B], mx i32 [B], my i32 [B])."""
-    B, H, W = packed.shape
-    th, tw = template_u8.shape
-    oh, ow = H - th + 1, W - tw + 1
     lp = lightness_from_planes(*unpack_planes(packed)) - 128
     tp = template_u8.to(torch.int32) - 128
-    corr = _corr8(lp, tp)
-    ii = F.pad(lp.to(torch.int64).cumsum(1).cumsum(2), (1, 0, 1, 0))
-    box = (ii[:, th:, tw:] - ii[:, :-th, tw:] - ii[:, th:, :-tw]
-           + ii[:, :-th, :-tw])
+    corr, box = corr_box8(lp, tp)
     f32 = torch.float32
     c1t = torch.tensor(c1, dtype=f32, device=packed.device)
     c0t = torch.tensor(c0, dtype=f32, device=packed.device)
-    scores = (corr.to(f32) + c1t * box.to(f32)) + c0t
+    return locate((corr.to(f32) + c1t * box.to(f32)) + c0t)
+
+
+def locate(scores: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """template.locate: scores [B, oh, ow] -> (max_val f32 [B], x i32
+    [B], y i32 [B]), the first maximum in row-major order (cv2's
+    minMaxLoc)."""
+    B, oh, ow = scores.shape
     flat = scores.reshape(B, oh * ow)
-    idx = torch.argmax(flat, dim=1)          # first maximum, row-major
-    max_val = flat.gather(1, idx[:, None])[:, 0]
-    return (max_val, (idx % ow).to(torch.int32),
-            (idx // ow).to(torch.int32))
+    idx = torch.argmax(flat, dim=1)
+    return (flat.gather(1, idx[:, None])[:, 0],
+            (idx % ow).to(torch.int32), (idx // ow).to(torch.int32))
 
 
 def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
@@ -115,7 +202,7 @@ def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
     if not (1 <= th <= H and 1 <= tw <= W):
         raise ValueError(f"template {(th, tw)} does not fit crop {(H, W)}")
     lib = _build.library()
-    smem = lib.meterelf_frontend_smem_bytes(H, W, th, tw)
+    smem = smem_bytes(H, W, th, tw)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"crop {(H, W)} with template {(th, tw)} needs {smem} B of "

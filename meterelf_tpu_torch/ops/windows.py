@@ -7,9 +7,10 @@ _dial_masks_from_packed_window). For every (image, dial) 64x64 window at
 
 - exact HLS_FULL with the wrapping hue shift (ops/color.py);
 - the dial color: the 5x5 sample at the dial center, integer-rounded
-  mean (2S + 25) // 50 (a center within 2 px of the window edge clamps
-  the sample into the window, as the reference path's dynamic slice
-  does);
+  mean (2S + 25) // 50 (a center within 2 px of the window edge moves
+  the sample as the reference path's lax.dynamic_slice does: a negative
+  start wraps by +64, then clamps into the window, so a center at row 0
+  or 1 samples the window's bottom rows);
 - inRange +-color_range, bounds clipped to [0, 255];
 - a 3x3 close with cv2 borders per window (ops/morphology.py).
 
@@ -40,6 +41,14 @@ MAX_DIALS = 8  # csrc/windows.cu kMaxDials
 Geom = Sequence[Tuple[int, int, int, int, int, int, int]]
 
 
+def _sample_start(c: int) -> int:
+    """Start of the 5x5 sample around centre c as lax.dynamic_slice takes
+    it in the JAX graph: a negative start wraps (+64), then clamps into
+    the window."""
+    s = c - 2
+    return min(max(s + WIN if s < 0 else s, 0), WIN - 5)
+
+
 def windows_plain(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
                   geom: Geom, disk: torch.Tensor, hue_shift: int
                   ) -> torch.Tensor:
@@ -59,8 +68,7 @@ def windows_plain(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
 
     sums = []
     for d, (_, _, cx, cy, *_cr) in enumerate(geom):
-        sx = min(max(cx - 2, 0), WIN - 5)
-        sy = min(max(cy - 2, 0), WIN - 5)
+        sx, sy = _sample_start(cx), _sample_start(cy)
         sums.append(planes[:, d, :, sy:sy + 5, sx:sx + 5].sum(dim=(-2, -1)))
     color = torch.div(2 * torch.stack(sums, dim=1) + 25, 50,
                       rounding_mode="floor")           # [B, D, 3]

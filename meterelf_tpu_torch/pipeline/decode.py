@@ -1,26 +1,34 @@
 """The batched decode path: packed-BGR meter crops in, per-image readings
 and error codes out.
 
-Port of meterelf_tpu/pipeline/decode.py ``_decode_batch`` on its
-quad-kernel branch (the TPU's main path) and of ``MeterDecoder``. Per
-batch, on one device:
+Port of meterelf_tpu/pipeline/decode.py ``_decode_batch`` and
+``MeterDecoder``, with the JAX graph's three branches, chosen by the same
+gates (copied: ops/frontend.fits, ops/match.fits, ``_stats_bbox``) and
+the same static arguments (``MeterDecoder.static_kwargs``):
 
-  1. K1 frontend: exact lightness, template match, first-max location
-     (ops/frontend.py);
-  2. K2 windows: exact HLS, 5x5 color sample, inRange, 3x3 close per dial
-     window at the match location (ops/windows.py);
-  3. K3 ccl: component labels, outside flood, hole fill -> okey3
-     (ops/ccl.py);
-  4. K4 stats: largest top-level contour per window (ops/stats.py);
-  5. f64 angle statistics and the carry-corrected value (ops/angles.py);
-  6. the reference's error priority (decode.py:440-467).
+- **quad** (the frontend fits, 4 dials, every dial centre at least 2 px
+  inside its window): K1 frontend (template match and first-max
+  location, ops/frontend.py) -> K2 windows (exact HLS, 5x5 colour
+  sample, inRange, 3x3 close per dial window at the match location,
+  ops/windows.py) -> K3 ccl (ops/ccl.py) -> K4 stats (ops/stats.py) ->
+  angles from okey3;
+- **frontend, non-quad** (another dial count, or a centre within 2 px of
+  its window edge): K1 -> K2 -> K6 propagate -> components.finalize
+  (largest component and needle region) -> angles from the region;
+- **scorer-only** (the frontend gate refuses the geometry, or
+  ``static_win_origin`` is None): the lightness map, K8 match_scores
+  (ops/match.py) where pallas_match2's gate admits it, else the JAX
+  package's matmul scorer in torch -> first-max locate -> K2 -> K6 ->
+  finalize -> angles.
 
-On a CUDA device every kernel stage launches its CUDA kernel; on the CPU
-the same code runs each kernel's plain torch version.
+Every branch ends in f64 angle statistics, the carry-corrected value
+(4 dials) and the reference's error priority (decode.py:440-467). On a
+CUDA device every kernel stage launches its CUDA kernel; on the CPU the
+same code runs each kernel's plain torch version.
 
 ``make_coef_decode_fn`` puts the JPEG back-half of the coefficient feed
 (ops/jpeg_tail.py: K10, or the plain IDCT and K11 on the block layout)
-in front of the same decode.
+and the fallback slots in front of the same decode.
 """
 from __future__ import annotations
 
@@ -31,10 +39,12 @@ import torch
 
 from ..errors import ErrCode
 from ..params import Params, to_device
-from ..ops.angles import assemble_value, read_dials
-from ..ops.ccl import ccl
-from ..ops.components import RESCUE_CAPS
-from ..ops.frontend import frontend, score_constants
+from ..ops import match
+from ..ops.angles import assemble_value, read_dials, read_dials_region
+from ..ops.ccl import analyze_batch, ccl
+from ..ops.color import lightness_from_planes, unpack_planes
+from ..ops.components import RESCUE_CAPS, StatsBox
+from ..ops.frontend import frontend, frontend_ok, locate, score_constants
 from ..ops.jpeg_tail import backhalf_blocks, backhalf_planes
 from ..ops.jpegdec import CoefWindow, coef_window
 from ..ops.stats import stats
@@ -88,6 +98,20 @@ class MeterDecoder:
                 self.param_arrays.win_origin, self.param_arrays.centers_int,
                 np.asarray(host.color_range)))
         self.disk = self.param_arrays.mask_full.to(torch.uint8)
+        th, tw = host.template_u8.shape
+        self.tmean = float(np.float32(np.asarray(host.template_u8, np.int64)
+                                      .sum()) / np.float32(th * tw))
+        # the JAX decoder's static arguments (decode.py:629-651): centres
+        # are static only when the 5x5 sample stays inside every window
+        centers = self.param_arrays.centers_int
+        safe = all(2 <= cx <= W - 3 and 2 <= cy <= W - 3
+                   for cx, cy in centers)
+        self.static_kwargs = dict(
+            static_win_origin=self.param_arrays.win_origin,
+            static_centers=centers if safe else None,
+            static_crop_hw=(h, w),
+            static_bbox=_stats_bbox(np.asarray(host.mask_full)),
+        )
 
     def _packed(self, crops: Any) -> torch.Tensor:
         x = torch.as_tensor(crops).to(self.device)
@@ -110,37 +134,9 @@ class MeterDecoder:
         """One batch under the given CCL caps (default caps when None),
         as device tensors."""
         packed = self._packed(crops)
-        B = packed.shape[0]
-        D = len(self.geom)
-        pa = self.param_arrays
-
-        max_val, mx, my = frontend(packed, pa.template_u8, self.score_c1,
-                                   self.score_c0)
-        bits = windows(packed, mx, my, self.geom, self.disk,
-                       self.hue_shift)
-        okey3, conv = ccl(bits.reshape(B * D, W, W), caps)
-        keymax, has_any = stats(okey3)
-        positions, readable = read_dials(
-            okey3.reshape(B, D, W * W), keymax.reshape(B, D), pa)
-        if D == 4:
-            value = assemble_value(positions, pa.value_perm)
-        else:
-            value = torch.zeros(B, dtype=positions.dtype, device=self.device)
-        err, first_bad, unreadable_bits = _error_codes(
-            self._load_ok(load_ok, B), max_val >= self._threshold,
-            has_any.reshape(B, D), readable)
-        return BatchResult(
-            err=err,
-            first_bad_dial=first_bad,
-            unreadable_bits=unreadable_bits,
-            match_val=max_val,
-            match_x=mx,
-            match_y=my,
-            dial_pos=positions,
-            readable=readable,
-            value=value,
-            converged=conv.reshape(B, D).all(dim=1),
-        )
+        return _decode_batch(self, packed, self._load_ok(load_ok,
+                                                         packed.shape[0]),
+                             caps=caps, **self.static_kwargs)
 
     def __call__(self, crops: Any, load_ok: Any = None) -> BatchResult:
         return self.decode(crops, load_ok)
@@ -171,6 +167,84 @@ class MeterDecoder:
         return BatchResult(*[
             np.where(take.reshape(take.shape + (1,) * (a.ndim - 1)), a, b)
             for a, b in zip((np.asarray(v) for v in res), res2)])
+
+
+def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
+                  load_ok: torch.Tensor, *, static_win_origin: Any,
+                  static_centers: Any, static_crop_hw: Tuple[int, int],
+                  static_bbox: Optional[StatsBox],
+                  caps: Optional[Sequence[int]]) -> BatchResult:
+    """decode.py _decode_batch: packed [B, H, W] i32 crops -> BatchResult
+    of device tensors, on the branch the static arguments and gates pick
+    (module docstring)."""
+    B = packed.shape[0]
+    D = len(dec.geom)
+    pa = dec.param_arrays
+    th, tw = pa.template_u8.shape
+    use_frontend = (frontend_ok(*static_crop_hw, th, tw)
+                    and static_win_origin is not None
+                    and len(static_win_origin) == D)
+    use_quad = use_frontend and D == 4 and static_centers is not None
+
+    if use_frontend:
+        max_val, mx, my = frontend(packed, pa.template_u8, dec.score_c1,
+                                   dec.score_c0)
+    else:
+        lightness = lightness_from_planes(*unpack_planes(packed)).to(
+            torch.float32)
+        score = (match.match_scores
+                 if match.fits(*lightness.shape[1:], th, tw)
+                 else match.scores_matmul)
+        max_val, mx, my = locate(score(lightness, pa.template_u8,
+                                       dec.tmean))
+    bits = windows(packed, mx, my, dec.geom, dec.disk, dec.hue_shift)
+    if use_quad:
+        okey3, conv = ccl(bits.reshape(B * D, W, W), caps)
+        keymax, has_any = stats(okey3)
+        positions, readable = read_dials(
+            okey3.reshape(B, D, W * W), keymax.reshape(B, D), pa)
+    else:
+        comp = analyze_batch(bits.reshape(B * D, W, W), static_bbox, caps)
+        has_any, conv = comp.has_any, comp.converged
+        positions, readable = read_dials_region(
+            comp.needle_region.reshape(B, D, W * W), pa)
+    if D == 4:
+        value = assemble_value(positions, pa.value_perm)
+    else:
+        value = torch.zeros(B, dtype=positions.dtype, device=packed.device)
+    err, first_bad, unreadable_bits = _error_codes(
+        load_ok, max_val >= dec._threshold, has_any.reshape(B, D), readable)
+    return BatchResult(
+        err=err,
+        first_bad_dial=first_bad,
+        unreadable_bits=unreadable_bits,
+        match_val=max_val,
+        match_x=mx,
+        match_y=my,
+        dial_pos=positions,
+        readable=readable,
+        value=value,
+        converged=conv.reshape(B, D).all(dim=1),
+    )
+
+
+def _stats_bbox(mask_full: np.ndarray, sb: int = 48
+                ) -> Optional[StatsBox]:
+    """decode.py _stats_bbox: the static per-dial SB x SB box holding every
+    disk pixel, for the component-stats sort; None when a dial's disk does
+    not fit one (the stats then cover the whole window)."""
+    D, W_, _ = mask_full.shape
+    origins = []
+    for i in range(D):
+        ys, xs = np.nonzero(np.asarray(mask_full[i]))
+        if len(xs) == 0:
+            return None
+        ox = int(min(xs.min(), W_ - sb))
+        oy = int(min(ys.min(), W_ - sb))
+        if xs.max() >= ox + sb or ys.max() >= oy + sb:
+            return None
+        origins.append((ox, oy))
+    return (tuple(origins), sb)
 
 
 def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]

@@ -9,15 +9,16 @@ Parameterized by `SyntheticCamera`: `DEFAULT_CAMERA` has the reference's
 188x119-template / 250x250-crop shape, while `ALT_CAMERA` is a
 deliberately different geometry (141x90 template, 210x200 crop), proof
 that the decoder is not hardwired to one camera (reference analog: the
-two shipped params.yml files, sample-images1/2).
+two shipped params.yml files, sample-images1/2), and
+`FIVE_DIAL_CAMERA` is the flagship geometry with a fifth dial.
 
 Copy of meterelf_tpu/synthetic.py for the port, which cannot import the
 JAX package. The renderer is unchanged (tests/test_torch_params.py holds
 its crops equal to the original's bit for bit); ``make_params`` builds
 the Params from the template array and writes no PNG.
 
-``encode_jpeg`` makes test data for the JPEG coefficient feed: a numpy
-baseline JPEG encoder (JFIF, 4:2:0, the standard tables), so that frames
+``encode_jpeg`` makes test data for the JPEG feed: a numpy baseline JPEG
+encoder (JFIF, 4:2:0 or 4:4:4, the standard tables), so that frames
 can be encoded where no image library is installed. It is not a user
 feature."""
 from __future__ import annotations
@@ -182,11 +183,11 @@ class SyntheticCamera:
                          for f in self.render_frames(batch_positions)])
 
 
-def dial_positions(n: int, step: float = 1.7, spread: float = 2.3
-                   ) -> List[List[float]]:
-    """Positions of 4 dials in n frames: dial d of frame i at
+def dial_positions(n: int, step: float = 1.7, spread: float = 2.3,
+                   dials: int = 4) -> List[List[float]]:
+    """Positions of ``dials`` dials in n frames: dial d of frame i at
     (i*step + d*spread) % 10."""
-    return [[(i * step + d * spread) % 10 for d in range(4)]
+    return [[(i * step + d * spread) % 10 for d in range(dials)]
             for i in range(n)]
 
 
@@ -208,6 +209,13 @@ ALT_CAMERA = SyntheticCamera(
     ),
     seed=77,
 )
+
+# The flagship geometry (640x480 frames, 250x250 crop, 119x188 template)
+# with a fifth dial: a meter with D != 4 dials takes the general-geometry
+# decode branch (K1, K2, K6). The fifth centre keeps >= 38 px from the
+# others (see ALT_CAMERA) and its window lies inside the template.
+FIVE_DIAL_CAMERA = SyntheticCamera(
+    dial_specs=tuple(DIAL_SPECS) + (("1", (62.0, 24.0), 12),))
 
 
 
@@ -296,23 +304,29 @@ def _magnitude(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def encode_jpeg(frame_bgr: np.ndarray, quality: int = 92,
-                restart_interval: int = 0) -> bytes:
+                restart_interval: int = 0, subsampling: str = "4:2:0"
+                ) -> bytes:
     """Encode a [H, W, 3] u8 BGR frame as a baseline JFIF JPEG: YCbCr
-    4:2:0, the Annex K quantisation tables scaled to ``quality`` as
-    libjpeg scales them, the Annex K Huffman tables, and a restart marker
-    every ``restart_interval`` MCUs when it is > 0. Float DCT, numpy
+    4:2:0 (or 4:4:4 with ``subsampling="4:4:4"``), the Annex K
+    quantisation tables scaled to ``quality`` as libjpeg scales them, the
+    Annex K Huffman tables, and a restart marker every
+    ``restart_interval`` MCUs when it is > 0. Float DCT, numpy
     throughout."""
+    if subsampling not in ("4:2:0", "4:4:4"):
+        raise ValueError(f"subsampling {subsampling!r}: 4:2:0 or 4:4:4")
+    sub = subsampling == "4:2:0"
+    ms = 16 if sub else 8          # MCU size in pixels
     f = np.asarray(frame_bgr, np.float64)
     h, w = f.shape[:2]
     b, g, r = f[..., 0], f[..., 1], f[..., 2]
     planes = [0.299 * r + 0.587 * g + 0.114 * b,
               -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
               0.5 * r - 0.418688 * g - 0.081312 * b + 128]
-    mcux, mcuy = -(-w // 16), -(-h // 16)
-    pad = ((0, 16 * mcuy - h), (0, 16 * mcux - w))
+    mcux, mcuy = -(-w // ms), -(-h // ms)
+    pad = ((0, ms * mcuy - h), (0, ms * mcux - w))
     planes = [np.pad(np.clip(np.round(p), 0, 255), pad, mode="edge")
               for p in planes]
-    for i in (1, 2):    # 2x2 box downsampling
+    for i in (1, 2) if sub else ():    # 2x2 box downsampling
         p = planes[i]
         planes[i] = np.floor((p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2]
                               + p[1::2, 1::2] + 2) / 4)
@@ -329,17 +343,18 @@ def encode_jpeg(frame_bgr: np.ndarray, quality: int = 92,
         blocks.append(np.clip(coef.reshape(bh, bw, 64)[..., _ZIGZAG],
                               -1023, 1023).astype(np.int64))
     nmcu = mcux * mcuy
-    ys = (blocks[0].reshape(mcuy, 2, mcux, 2, 64).transpose(0, 2, 1, 3, 4)
-          .reshape(nmcu, 4, 64))
+    ny = 4 if sub else 1           # luma blocks per MCU
+    ys = (blocks[0].reshape(mcuy, ms // 8, mcux, ms // 8, 64)
+          .transpose(0, 2, 1, 3, 4).reshape(nmcu, ny, 64))
     scan = np.concatenate([ys, blocks[1].reshape(nmcu, 1, 64),
                            blocks[2].reshape(nmcu, 1, 64)],
-                          axis=1).reshape(nmcu * 6, 64)
-    comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), nmcu)
-    mcu = np.arange(nmcu * 6) // 6
+                          axis=1).reshape(nmcu * (ny + 2), 64)
+    comp = np.tile(np.array([0] * ny + [1, 2]), nmcu)
+    mcu = np.arange(nmcu * (ny + 2)) // (ny + 2)
     interval = mcu // restart_interval if restart_interval else 0 * mcu
 
     # DC differences, the predictor reset at every restart interval
-    diff = np.empty(nmcu * 6, np.int64)
+    diff = np.empty(nmcu * (ny + 2), np.int64)
     for c in range(3):
         sel = np.nonzero(comp == c)[0]
         dc = scan[sel, 0]
@@ -358,7 +373,7 @@ def encode_jpeg(frame_bgr: np.ndarray, quality: int = 92,
                 np.where(t == 0, l0[sym], l1[sym]))
 
     # events (sort key, value bits, bit count): DC, ZRLs + AC, EOB
-    nblk = nmcu * 6
+    nblk = nmcu * (ny + 2)
     s, extra = _magnitude(diff)
     code, ln = huff("dc", tab, s)
     keys = [np.arange(nblk) * 1024]
@@ -424,7 +439,8 @@ def encode_jpeg(frame_bgr: np.ndarray, quality: int = 92,
         bytes([i]) + bytes(int(x) for x in qts[i][_ZIGZAG])
         for i in range(2)))
     out += _segment(0xC0, bytes([8, h >> 8, h & 255, w >> 8, w & 255, 3,
-                                 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+                                 1, 0x22 if sub else 0x11, 0, 2, 0x11, 1,
+                                 3, 0x11, 1]))
     out += _segment(0xC4, b"".join(
         bytes([cls]) + bytes(_HUFF[name][0]) + _HUFF[name][1]
         for cls, name in ((0x00, "dc0"), (0x10, "ac0"), (0x01, "dc1"),

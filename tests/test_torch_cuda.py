@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from meterelf_tpu_torch import synthetic
+from meterelf_tpu_torch import _build, synthetic
 from meterelf_tpu_torch.io import jpeg as tio
 from meterelf_tpu_torch.ops import ccl, components, frontend, jpeg_tail
-from meterelf_tpu_torch.ops import jpegdec, stats, windows
+from meterelf_tpu_torch.ops import jpegdec, match, stats, windows
+from meterelf_tpu_torch.ops.color import lightness_from_planes, unpack_planes
 from meterelf_tpu_torch.pipeline.decode import MeterDecoder, make_coef_decode_fn
 from meterelf_tpu_torch.types import Rect
 
@@ -69,6 +70,94 @@ def test_windows_ccl_stats_kernels_equal_plain(case):
     km, ha = stats.stats(okey3)
     km_r, ha_r = stats.stats_plain(okey3)
     assert torch.equal(km, km_r) and torch.equal(ha, ha_r)
+
+
+def test_propagate_and_match_kernels_equal_plain(case):
+    """K6 under three caps and K8 on the flagship crops, bit-equal to
+    their plain versions; K1's staging size equals its Python gate's."""
+    dec, _, packed = case
+    mx, my = frontend.frontend(packed, dec.param_arrays.template_u8,
+                               dec.score_c1, dec.score_c0)[1:]
+    flat = windows.windows(packed, mx, my, dec.geom, dec.disk,
+                           dec.hue_shift).reshape(-1, W, W)
+    for caps in (None, (1, 1, 1), components.RESCUE_CAPS):
+        got = ccl.propagate(flat, caps)
+        ref = components.propagate(flat, caps, pack_closed=False)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    L = lightness_from_planes(*unpack_planes(packed)).to(torch.float32)
+    tmpl = dec.param_arrays.template_u8
+    got = match.match_scores(L, tmpl, dec.tmean)
+    ref = match.match_scores_plain(L, tmpl, dec.tmean)
+    torch.cuda.synchronize()
+    assert got.cpu().numpy().tobytes() == ref.cpu().numpy().tobytes()
+    lib = _build.library()
+    for shape in ((250, 250, 119, 188), (200, 210, 90, 141),
+                  (256, 256, 128, 129)):
+        assert lib.meterelf_frontend_smem_bytes(*shape) == \
+            frontend.smem_bytes(*shape)
+
+
+def _equal_results(a, b):
+    for f in a._fields:
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if f in ("dial_pos", "value"):
+            np.testing.assert_allclose(x, y, rtol=0, atol=1e-9, err_msg=f)
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+# the flagship with dial "0.1" 1 px below the template's top edge: its
+# 5x5 colour sample starts at window row -1, which K2 wraps as the JAX
+# graph's dynamic slice does
+EDGE_CAMERA = synthetic.SyntheticCamera(
+    dial_specs=tuple(synthetic.DIAL_SPECS[:3]) + (("0.1", (160.9, 1.5), 12),))
+
+
+@pytest.mark.parametrize("branch", ["five_dial", "edge_centre", "scorer_only"])
+def test_general_branches_on_card_equal_cpu(dev, branch):
+    """FIVE_DIAL_CAMERA and the edge-centre camera (K1, K2, K6) and the
+    flagship forced down the scorer-only branch (K8, K2, K6) on the card
+    equal the CPU decoder; K3 and K4 never launch there."""
+    cam = {"five_dial": synthetic.FIVE_DIAL_CAMERA,
+           "edge_centre": EDGE_CAMERA,
+           "scorer_only": synthetic.DEFAULT_CAMERA}[branch]
+    D = len(cam.dial_specs)
+    pos = synthetic.dial_positions(8, dials=D)
+    crops = cam.render_crops(pos)
+    decs = [MeterDecoder(cam.make_params(), device=d) for d in (dev, "cpu")]
+    if branch == "scorer_only":
+        for d in decs:
+            d.static_kwargs["static_win_origin"] = None
+    kernels = (frontend.frontend, match.match_scores, ccl.ccl, stats.stats,
+               ccl.propagate)
+    before = [k.launches for k in kernels]
+    a = decs[0].decode_numpy(crops)
+    n = [k.launches - b for k, b in zip(kernels, before)]
+    _equal_results(a, decs[1].decode_numpy(crops))
+    assert n[2:] == [0, 0, 1]
+    assert n[:2] == ([0, 1] if branch == "scorer_only" else [1, 0])
+    if branch != "edge_centre":     # its clipped dial reads off the needle
+        err = np.abs((a.dial_pos - np.array(pos) + 5) % 10 - 5)
+        assert (a.err == 0).all() and err.max() < 0.1
+
+
+def test_fallback_feed_on_card_equals_cpu(dev):
+    """A coefficient feed whose fallback slots hold 4:4:4 and truncated
+    frames (the port's encoder; the card's machine has no PIL): every row
+    loads, and the card's step equals the CPU step."""
+    cam = synthetic.DEFAULT_CAMERA
+    frames = cam.render_frames(synthetic.dial_positions(6))
+    datas = [synthetic.encode_jpeg(f, 92, subsampling="4:4:4" if i % 2
+                                   else "4:2:0")
+             for i, f in enumerate(frames)]
+    datas[4] = datas[4][:len(datas[4]) // 2]
+    feed = tio.load_coef_feed(datas, cam.meter_rect, (640, 480), (250, 250))
+    assert feed[4].all() and sorted(feed[6][:3].tolist()) == [1, 3, 5]
+    steps = [make_coef_decode_fn(MeterDecoder(cam.make_params(), device=d),
+                                 (640, 480))[0] for d in (dev, "cpu")]
+    a, b = (s(None, *feed) for s in steps)
+    _equal_results(type(a)(*[v.cpu().numpy() for v in a]),
+                   type(b)(*[v.numpy() for v in b]))
 
 
 def test_decoder_on_card_equals_cpu_decoder(case):

@@ -136,14 +136,18 @@ def test_reader_table_cache_alternating_streams():
 
 
 def test_rejected_frames_are_not_loaded():
-    """The port's known divergence (io/jpeg.py docstring): frames the
-    fast reader rejects come back ok=False with zeroed rows, and the
-    feed marks them not loaded with every fallback slot unused, where
-    the JAX package decodes them with libjpeg (ok rows, or a fallback
-    slot)."""
+    """Frames the fast coefficient reader rejects, held equal to the JAX
+    package (whose reader hands them to libjpeg). 16-bit DQT, truncated
+    and restart-mismatched frames come back read by the coefficient reader
+    with the JAX coefficients; progressive, 4:4:4 and Adobe-RGB frames
+    stay rejected there, and the feed decodes them whole into fallback
+    slots bit-equal to the JAX feed's, so no frame is left not loaded.
+    (The name is that of the test which pinned the old divergence.)"""
     rng = np.random.default_rng(20260819)
     frame = _rng_frame(rng, 160, 128)
     base = _pil(frame[..., ::-1], quality=85, subsampling=2)
+    rst = t_syn.encode_jpeg(frame[..., ::-1], 85, restart_interval=2)
+    cut = rst.index(b"\xff\xd2")
     bad = {
         "progressive": _pil(frame[..., ::-1], quality=85, subsampling=2,
                             progressive=True),
@@ -151,22 +155,28 @@ def test_rejected_frames_are_not_loaded():
         "dqt16": _widen_dqt(base, scale=1),
         "truncated": base[:len(base) // 2],
         "adobe_rgb": _insert_before_sof(_strip_app0(base), _adobe_app14(0)),
+        "restart_missing": rst[:cut] + rst[cut + 2:],
     }
     datas = [base] + list(bad.values())
     rect = Rect((16, 16), (80, 80))
     wh = (160, 128)
-    win = tdec.coef_window(rect, *wh)
+    read = [True, False, False, True, True, False, True]
     for kw in LAYOUTS.values():
-        *coefs, qt, ok = tio.read_coefs_batch(datas, win, wh, **kw)
-        assert ok.tolist() == [True] + [False] * len(bad), kw
-        for a in (*coefs, qt):
-            assert not a[1:].any() and a[0].any(), kw
-    feed = tio.load_coef_feed(datas, rect, wh, (rect.height, rect.width))
-    assert feed[4].tolist() == [True] + [False] * len(bad)
-    assert (feed[6] == len(datas)).all() and not feed[5].any()
-    # the JAX package reads 16-bit DQT and truncated frames with libjpeg
-    *_, j_ok = jio.read_coefs_batch(datas, jdec.coef_window(rect, *wh), wh)
-    assert j_ok[[0, 3, 4]].all()
+        got = tio.read_coefs_batch(datas, tdec.coef_window(rect, *wh), wh,
+                                   **kw)
+        ref = jio.read_coefs_batch(datas, jdec.coef_window(rect, *wh), wh,
+                                   **kw)
+        assert got[4].tolist() == read, kw
+        for k in range(5):
+            assert _same(np.array(ref[k]), got[k]), (kw, k)
+    pad = (rect.height, rect.width)
+    win = tuple(tdec.coef_window(rect, *wh))
+    feed = tio.load_coef_feed_shard(datas, win, False, rect, wh, pad)
+    ref = jio.load_coef_feed_shard(datas, win, False, rect, wh, pad)
+    for k in range(7):
+        assert _same(np.array(ref[k]), feed[k]), k
+    assert feed[4].all()
+    assert feed[6].tolist() == [1, 2, 5] + [len(datas)] * 5
 
 
 def test_encode_jpeg_tables_and_decode(tmp_path):

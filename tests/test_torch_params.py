@@ -136,7 +136,8 @@ def test_port_imports_without_jax():
             "meterelf_tpu_torch.synthetic", "meterelf_tpu_torch._build",
             "meterelf_tpu_torch.ops.frontend", "meterelf_tpu_torch.ops.windows",
             "meterelf_tpu_torch.ops.ccl", "meterelf_tpu_torch.ops.stats",
-            "meterelf_tpu_torch.ops.angles",
+            "meterelf_tpu_torch.ops.angles", "meterelf_tpu_torch.ops.match",
+            "meterelf_tpu_torch.ops.components",
             "meterelf_tpu_torch.ops.jpegdec", "meterelf_tpu_torch.ops.jpeg_tail",
             "meterelf_tpu_torch.io.jpeg",
             "meterelf_tpu_torch.pipeline.decode"]
