@@ -6,7 +6,7 @@ Runs from the root of a checkout, with nothing built beforehand:
 
 1. prints the card (torch and CUDA versions, nvidia-smi name and power
    limit); exits non-zero when no CUDA device is present;
-2. builds the eight CUDA kernels from meterelf_tpu_torch/csrc with nvcc
+2. builds the eleven CUDA kernels from meterelf_tpu_torch/csrc with nvcc
    and the host JPEG readers (io/native/*.c) with gcc; renders 256
    flagship, 64 ALT_CAMERA and 256 FIVE_DIAL_CAMERA frames and encodes
    flagship (64 distinct, tiled), ALT and five-dial (32 distinct, tiled)
@@ -16,12 +16,14 @@ Runs from the root of a checkout, with nothing built beforehand:
 3. runs each kernel at the main paths' shapes (256 flagship crops and
    their 1024 dial windows; the flagship JPEG feed's compact planes for
    K10 and its block-branch planes for K11; the five-dial camera's 1280
-   windows for K6; the flagship lightness maps for K8) and holds it
+   windows for K6; the flagship lightness maps for K8 and K9; K5 on the
+   flagship crops, K7 on K6's okey of the flagship windows) and holds it
    against its plain torch version on the same CUDA tensors: exact
-   equality of every output (f32 outputs bitwise); times both with CUDA
-   events, and times the library yardstick where one PyTorch call
-   computes the same function (K1's and K8's correlation as an fp32
-   conv2d, TF32 off);
+   equality of every output (f32 outputs bitwise), and K5 against K1 then
+   K2, K7's keymax against K4's, K9's v1 map against K8's; times both
+   with CUDA events, and times the library yardstick where one PyTorch
+   call computes the same function (K1's, K8's and K9's correlation as an
+   fp32 conv2d, TF32 off);
 4. drives each path with every launch count reset to 0 first: the crop
    decode (MeterDecoder(device="cuda").decode_numpy) and the coefficient
    path (make_coef_decode_fn's step) of both cameras (quad branch), the
@@ -29,19 +31,26 @@ Runs from the root of a checkout, with nothing built beforehand:
    the coefficient step: K1, K2, K6, no K3/K4), the scorer-only branch
    (flagship crops with static_win_origin=None: K8, K2, K6) and the
    fallback batch (every frame loaded, the 4:4:4 rows in the fallback
-   slots): readings within 0.1 of the rendered positions, the first 16
-   rows equal to the CPU (plain versions), the kernels of each path
-   launched as the path requires; then a dense-noise window through the
-   CCL kernel, non-converged under the default caps and converged under
-   the rescue caps, equal to the plain version both times;
-5. prints the throughput of the paths, the host feed time with fallback
-   frames, and the device time of a steady batch of the quad, coefficient
-   and general paths by kernel (torch.profiler) with the device busy
-   share;
+   slots), the quad branch's decode variants (METERELF_FRONTEND=merged
+   with METERELF_QUAD_STATS=hist_pallas through decode_numpy and the
+   coefficient step: K5, K6, K7; merged with fused: K5, K3, K4) and the
+   v1 scorer (match.match_scores_v1: K9): readings within 0.1 of the
+   rendered positions, the first 16 rows equal to the CPU (plain
+   versions), the variants equal to the default decode, the kernels of
+   each path launched as the path requires; then a dense-noise window
+   through the CCL kernel and through the hist_pallas variant's analysis
+   (K6, K7), non-converged under the default caps and converged under the
+   rescue caps, equal to the plain version both times;
+5. prints the throughput of the paths (the four quad-branch variants
+   timed in turns, split/merged x fused/hist_pallas), the host feed time
+   with fallback frames, and the device time of a steady batch of the
+   quad, coefficient, general and merged + hist_pallas paths by kernel
+   (torch.profiler) with the device busy share;
 6. prints a JSON line of per-kernel results (launches from the
    coefficient path; K6's from the general branch, K8's from the
-   scorer-only branch), the card, then, only if every phase passed,
-   {"ok": true, "device": {...}} as the last line.
+   scorer-only branch, K5's and K7's from the merged + hist_pallas crop
+   decode, K9's from match_scores_v1), the card, then, only if every
+   phase passed, {"ok": true, "device": {...}} as the last line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -92,12 +101,18 @@ REPLACES = {
     "upsample_color_pack": "meterelf_tpu/ops/pallas_jpeg.py:387",
     "propagate": "meterelf_tpu/ops/pallas_ccl.py:439",
     "match_scores": "meterelf_tpu/ops/pallas_match2.py:118",
+    "frontend_windows": "meterelf_tpu/ops/pallas_frontend.py:478",
+    "stats_select": "meterelf_tpu/ops/pallas_stats.py:304",
+    "match_corr": "meterelf_tpu/ops/pallas_match.py:109",
 }
 SOURCES = {k: f"meterelf_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["backhalf_planes"] = SOURCES["upsample_color_pack"] = (
     "meterelf_tpu_torch/csrc/jpeg.cu")
 SOURCES["propagate"] = "meterelf_tpu_torch/csrc/ccl.cu"
-SOURCES["match_scores"] = "meterelf_tpu_torch/csrc/match.cu"
+SOURCES["match_scores"] = SOURCES["match_corr"] = (
+    "meterelf_tpu_torch/csrc/match.cu")
+SOURCES["frontend_windows"] = "meterelf_tpu_torch/csrc/frontend.cu"
+SOURCES["stats_select"] = "meterelf_tpu_torch/csrc/stats.cu"
 
 
 def say(*a: object) -> None:
@@ -184,11 +199,15 @@ def check_readings(label: str, res, pos: np.ndarray) -> None:
     check(e < POS_TOL, f"{label}: reading error {e}")
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float,
+          more_ops: tuple = ()) -> dict:
     """The least time of a kernel's work on the card (ms) and what bounds
     it: each input byte read once and each output byte written once over
-    the HBM rate, against the operations over their type's peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    the HBM rate, against the operations over their type's peak rate
+    (plus, for a kernel with work of two types, more_ops's (ops, rate)
+    pairs, each type's time added)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / ops_per_s + sum(n / r for n, r in more_ops)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -266,6 +285,7 @@ def profile_ms(label: str, fn, reps: int = 5) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     import torch
 
@@ -291,6 +311,7 @@ def main() -> int:
     from meterelf_tpu_torch.ops import windows as win_ops
     from meterelf_tpu_torch.ops.color import (lightness_from_planes,
                                               unpack_planes)
+    from meterelf_tpu_torch.ops.frontend import locate
     from meterelf_tpu_torch.pipeline.decode import (MeterDecoder,
                                                     make_coef_decode_fn)
 
@@ -355,6 +376,14 @@ def main() -> int:
     # the scorer-only branch: the flagship with static_win_origin=None
     sc_dec = MeterDecoder(cam.make_params(), device=dev)
     sc_dec.static_kwargs["static_win_origin"] = None
+    # the quad branch's decode variants (METERELF_FRONTEND x
+    # METERELF_QUAD_STATS), the default decoder being split + fused
+    variants = {(fe, qs): MeterDecoder(cam.make_params(), device=dev,
+                                       frontend=fe, quad_stats=qs)
+                for fe in ("split", "merged")
+                for qs in ("fused", "hist_pallas")
+                if (fe, qs) != ("split", "fused")}
+    variants[("split", "fused")] = dec
 
     def phase(name, fn) -> None:
         try:
@@ -471,6 +500,7 @@ def main() -> int:
         results["stats"]["max_abs_err"] = float((km_g - km_r).abs().max())
         check(torch.equal(km_g, km_r), "keymax differs")
         check(torch.equal(ha_g, ha_r), "has_any differs")
+        state["keymax"] = km_g
         results["stats"]["ms"] = cuda_ms(lambda: stats.stats(okey3), 20)
         results["stats"]["plain_ms"] = cuda_ms(
             lambda: stats.stats_plain(okey3), 5)
@@ -578,10 +608,96 @@ def main() -> int:
             L.numel() * 4 + th * tw + got.numel() * 4, 2 * macs,
             INT8_TC_OPS_PER_S))
 
+    def k5() -> None:
+        args = (packed, pa.template_u8, dec.score_c1, dec.score_c0, dec.geom,
+                dec.disk, dec.hue_shift)
+        got = frontend.frontend_windows(*args)
+        ref = frontend.frontend_windows_plain(*args)
+        torch.cuda.synchronize()
+        mv_g, mv_r = got[0].cpu().numpy(), ref[0].cpu().numpy()
+        results["frontend_windows"]["max_abs_err"] = max(
+            float(np.abs(mv_g - mv_r).max()),
+            *(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:])))
+        check(np.array_equal(mv_g.view(np.uint32), mv_r.view(np.uint32)),
+              "max_val not bitwise equal")
+        check(all(torch.equal(a, b) for a, b in zip(got[1:], ref[1:])),
+              "mx/my/bits differ from the plain version")
+        # the split kernels' outputs (phases K1, K2) on the same crops
+        check(torch.equal(got[1], state["mx"]) and torch.equal(
+            got[2], state["my"]) and torch.equal(
+                got[3].reshape(-1, 64, 64), state["bits"]),
+              "K5 differs from K1 then K2")
+        results["frontend_windows"]["ms"] = cuda_ms(
+            lambda: frontend.frontend_windows(*args), 10)
+        results["frontend_windows"]["plain_ms"] = cuda_ms(
+            lambda: frontend.frontend_windows_plain(*args), 3)
+        B, H, W = packed.shape
+        th, tw = pa.template_u8.shape
+        macs = B * (H - th + 1) * (W - tw + 1) * th * tw
+        px = got[3].numel()
+        # K1's bytes and operations plus K2's: the bits written, the disk,
+        # and K2's fp32 HLS work (the window pixels are re-read on chip)
+        results["frontend_windows"].update(bound(
+            packed.numel() * 4 + th * tw + 12 * B + px * 4 + dec.disk.numel(),
+            2 * macs, INT8_TC_OPS_PER_S, ((30 * px, FP32_OPS_PER_S),)))
+
+    def k7() -> None:
+        # K6's okey of the flagship windows (the hist_pallas variant's
+        # input), contributions outside the kernel as the JAX graph makes
+        bits = state["bits"]
+        okey, _ = ccl_ops.propagate(bits)
+        contrib = stats.cell_contrib(okey >> 2)
+        got = stats.stats_select(okey, contrib)
+        ref = stats.stats_select_plain(okey, contrib)
+        results["stats_select"]["max_abs_err"] = float(
+            (got - ref).abs().max())
+        check(torch.equal(got, ref), "keymax differs from the plain version")
+        check(torch.equal(got, state["keymax"]),
+              "K7's keymax differs from K4's on the same windows")
+        results["stats_select"]["ms"] = cuda_ms(
+            lambda: stats.stats_select(okey, contrib), 20)
+        results["stats_select"]["plain_ms"] = cuda_ms(
+            lambda: stats.stats_select_plain(okey, contrib), 5)
+        # okey and contrib read, keymax written; 4 int32 ops a pixel (the
+        # owner shift and bound, the boundary and contribution masks)
+        px = okey.numel()
+        results["stats_select"].update(bound(
+            px * 8 + 4 * okey.shape[0], 4 * px, INT32_OPS_PER_S))
+
+    def k9() -> None:
+        L = lightness_from_planes(*unpack_planes(packed)).to(torch.float32)
+        tm = pa.template_u8
+        got = match.match_corr(L, tm)
+        ref = match.match_corr_plain(L, tm)
+        torch.cuda.synchronize()
+        g, r = got.cpu().numpy(), ref.cpu().numpy()
+        results["match_corr"]["max_abs_err"] = float(np.abs(g - r).max())
+        check(np.array_equal(g.view(np.uint32), r.view(np.uint32)),
+              "corr not bitwise equal")
+        v1 = match.match_scores_v1(L, tm, dec.tmean).cpu().numpy()
+        k8 = match.match_scores(L, tm, dec.tmean).cpu().numpy()
+        check(np.array_equal(v1.view(np.uint32), k8.view(np.uint32)),
+              "match_scores_v1 differs from K8's map")
+        results["match_corr"]["ms"] = cuda_ms(
+            lambda: match.match_corr(L, tm), 10)
+        results["match_corr"]["plain_ms"] = cuda_ms(
+            lambda: match.match_corr_plain(L, tm), 3)
+        torch.backends.cudnn.allow_tf32 = False
+        tf = tm.to(torch.float32)[None, None]
+        results["match_corr"]["library_ms"] = cuda_ms(
+            lambda: F.conv2d(L[:, None], tf), 10)
+        th, tw = tm.shape
+        macs = L.shape[0] * got.shape[1] * got.shape[2] * th * tw
+        results["match_corr"].update(bound(
+            L.numel() * 4 + th * tw + got.numel() * 4, 2 * macs,
+            INT8_TC_OPS_PER_S))
+        state["L"] = L
+
     kernel_phases = (("frontend", k1), ("windows", k2), ("ccl", k3),
                      ("stats", k4), ("backhalf_planes", k10),
                      ("upsample_color_pack", k11), ("propagate", k6),
-                     ("match_scores", k8))
+                     ("match_scores", k8), ("frontend_windows", k5),
+                     ("stats_select", k7), ("match_corr", k9))
     for name, fn in kernel_phases:
         phase(f"kernel {name}", fn)
         r = results[name]
@@ -598,7 +714,9 @@ def main() -> int:
     coef_kernels = crop_kernels + (jpeg_tail.backhalf_planes,
                                    jpeg_tail.upsample_color_pack)
     general_kernels = (ccl_ops.propagate, match.match_scores)
-    all_kernels = coef_kernels + general_kernels
+    variant_kernels = (frontend.frontend_windows, stats.stats_select,
+                       match.match_corr)
+    all_kernels = coef_kernels + general_kernels + variant_kernels
 
     def reset(fns) -> None:
         for fn in fns:
@@ -674,8 +792,8 @@ def main() -> int:
         check(all(n > 0 for n in launches.values()),
               f"a kernel of the coefficient path was not launched: "
               f"{launches}")
-        check(not any(counts(general_kernels).values()),
-              "the quad branch launched K6 or K8")
+        check(not any(counts(general_kernels + variant_kernels).values()),
+              "the default quad branch launched K5-K9")
 
     def general_run() -> None:
         """FIVE_DIAL_CAMERA (D = 5: the general-geometry branch, K1, K2,
@@ -793,6 +911,84 @@ def main() -> int:
         say(f"fallback batch: every frame loaded, slots {sorted(FB_444)}, "
             f"first {N_CPU_CHECK} rows (all fallback rows) equal the CPU")
 
+    def variant_run() -> None:
+        """The quad branch under the decode knobs: merged + hist_pallas
+        (K5, K6, K7) through decode_numpy and the coefficient step, merged
+        + fused (K5, K3, K4) through decode_numpy; every field equal to
+        the default decode's."""
+        mh, mf = variants[("merged", "hist_pallas")], \
+            variants[("merged", "fused")]
+        base = dec.decode_numpy(crops)
+        for d in (mh, mf):
+            d.decode_numpy(crops[:8])                # warm-up
+        torch.cuda.synchronize()
+        cpu = {}
+        for (fe, qs), d, want in (
+                (("merged", "hist_pallas"), mh,
+                 {"frontend_windows": 1, "propagate": 1, "stats_select": 1}),
+                (("merged", "fused"), mf,
+                 {"frontend_windows": 1, "ccl": 1, "stats": 1})):
+            reset(all_kernels)
+            t = time.perf_counter()
+            res = d.decode_numpy(crops)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = counts(all_kernels)
+            if qs == "hist_pallas":
+                for name in ("frontend_windows", "stats_select"):
+                    results[name]["launches"] = launches[name]
+            say(f"variant {fe} + {qs}, crops: {B_MAIN} flagship crops in "
+                f"{wall:.3f} s; launches {launches}")
+            check(launches == {k: want.get(k, 0) for k in launches},
+                  f"variant {fe} + {qs} launches {launches}, want {want}")
+            check_readings(f"variant {fe} + {qs}", res, true_pos)
+            cpu[qs] = MeterDecoder(cam.make_params(), device="cpu",
+                                   frontend=fe, quad_stats=qs)
+            compare_results(rows(res, N_CPU_CHECK),
+                            cpu[qs].decode_numpy(crops[:N_CPU_CHECK]),
+                            f"variant {fe} + {qs} vs CPU")
+            compare_results(res, base, f"variant {fe} + {qs} vs default")
+        vstep, _, _ = make_coef_decode_fn(mh, FRAME_WH)
+        feed = state["feed"]
+        vstep(None, *cut(feed, 8))                  # warm-up
+        torch.cuda.synchronize()
+        reset(all_kernels)
+        res = to_numpy(vstep(None, *feed))
+        launches = counts(all_kernels)
+        say(f"variant merged + hist_pallas, coefficient step: {B_MAIN} "
+            f"flagship JPEG feeds; launches {launches}")
+        check(launches == {k: int(k in ("frontend_windows", "propagate",
+                                        "stats_select", "backhalf_planes"))
+                           for k in launches},
+              f"variant coefficient step launches {launches}")
+        check_readings("variant merged + hist_pallas coef", res,
+                       true_pos[np.arange(B_MAIN) % N_DISTINCT])
+        cpu_step, _, _ = make_coef_decode_fn(cpu["hist_pallas"], FRAME_WH)
+        compare_results(rows(res, N_CPU_CHECK),
+                        to_numpy(cpu_step(None, *cut(feed, N_CPU_CHECK))),
+                        "variant coef vs CPU")
+        compare_results(res, to_numpy(step(None, *feed)),
+                        "variant coef vs default coef")
+        say(f"variants: first {N_CPU_CHECK} rows equal the CPU, every row "
+            "equal to the default decode (crops and step)")
+
+    def v1_run() -> None:
+        """The v1 scorer through its entry point, match_scores_v1 (the JAX
+        package's tests and experiments call pallas_match's): K9."""
+        L = state["L"]
+        reset(all_kernels)
+        scores = match.match_scores_v1(L, pa.template_u8, dec.tmean)
+        torch.cuda.synchronize()
+        launches = counts(all_kernels)
+        results["match_corr"]["launches"] = launches["match_corr"]
+        say(f"v1 scorer: {B_MAIN} flagship lightness maps; launches "
+            f"{launches}")
+        check(launches == {k: int(k == "match_corr") for k in launches},
+              f"v1 scorer launches {launches}")
+        _, mx, my = locate(scores)
+        check(torch.equal(mx, state["mx"]) and torch.equal(my, state["my"]),
+              "v1 scorer's first maximum differs from K1's")
+
     def throughput() -> None:
         ms = cuda_ms(lambda: dec(packed), 10)
         say(f"crop decode (device-resident packed crops, B={B_MAIN}): "
@@ -826,6 +1022,17 @@ def main() -> int:
         say(f"scorer-only branch decode (flagship, device-resident crops, "
             f"B={B_MAIN}): {ms:.3f} ms/batch = {B_MAIN / ms * 1e3:.0f} "
             "images/s")
+        # the quad branch's variants in turns (ABCD DCBA), same crops
+        order = [("split", "fused"), ("merged", "fused"),
+                 ("split", "hist_pallas"), ("merged", "hist_pallas")]
+        ms = {k: [] for k in order}
+        for k in order + order[::-1]:
+            ms[k].append(cuda_ms(lambda: variants[k](packed), 10))
+        for k in order:
+            m = float(np.mean(ms[k]))
+            say(f"quad variant {k[0]} + {k[1]} (device-resident crops, "
+                f"B={B_MAIN}): {m:.3f} ms/batch = {B_MAIN / m * 1e3:.0f} "
+                f"images/s (runs {np.round(ms[k], 3).tolist()})")
 
     def rescue() -> None:
         yy, xx = np.mgrid[:64, :64]
@@ -844,12 +1051,30 @@ def main() -> int:
                   f"rescue window: converged {bool(cv_g[0])} under {caps}")
         say("rescue window: non-converged under default caps, converged "
             "under RESCUE_CAPS, kernel == plain both times")
+        # the same window through the hist_pallas variant's analysis (K6,
+        # then finalize with K7)
+        n7 = stats.stats_select.launches
+        for caps, want in ((None, False),
+                           (components.RESCUE_CAPS, True)):
+            got = ccl_ops.analyze_batch(bits, None, caps, "hist_pallas")
+            ref = ccl_ops.analyze_batch(bits.cpu(), None, caps,
+                                        "hist_pallas")
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)),
+                  f"rescue window, hist_pallas: card != CPU under {caps}")
+            check(bool(got.converged[0]) is want,
+                  f"rescue window, hist_pallas: converged under {caps}")
+        check(stats.stats_select.launches == n7 + 2,
+              "rescue window, hist_pallas: K7 not launched")
+        say("rescue window through the hist_pallas variant (K6, K7): the "
+            "same, equal to the CPU both times")
 
     def profile() -> None:
         profile_ms("crop decode", lambda: dec(packed))
         fd, fb = state["feed_dev"], state["feed"][5:]
         profile_ms("coefficient step", lambda: step(None, *fd, *fb))
         profile_ms("general branch decode", lambda: five_dec(five_packed))
+        profile_ms("variant merged + hist_pallas decode",
+                   lambda: variants[("merged", "hist_pallas")](packed))
 
     if not failures:
         phase("crop decode path", crop_run)
@@ -857,11 +1082,14 @@ def main() -> int:
         phase("general branch", general_run)
         phase("scorer-only branch", scorer_run)
         phase("fallback slots", fallback_run)
+        phase("decode variants", variant_run)
+        phase("v1 scorer", v1_run)
         phase("throughput", throughput)
         phase("rescue", rescue)
         phase("profile", profile)
 
     kernels = [results[k] for k in REPLACES]
+    say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     if failures:

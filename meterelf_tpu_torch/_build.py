@@ -47,11 +47,15 @@ _SIGNATURES = {
     "meterelf_frontend": [_P, _I, _I, _I, _P, _I, _I, _F, _F,
                           _P, _P, _P, _P],
     "meterelf_frontend_smem_bytes": [_I, _I, _I, _I],
+    "meterelf_frontend_windows": [_P, _I, _I, _I, _P, _I, _I, _F, _F, _P,
+                                  _P, _I, _P, _P, _P, _P, _P],
     "meterelf_windows": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
     "meterelf_ccl": [_P, _I, _I, _I, _I, _P, _P, _P],
     "meterelf_propagate": [_P, _I, _I, _I, _I, _P, _P, _P],
     "meterelf_match_scores": [_P, _I, _I, _I, _P, _I, _I, _I, _F, _P, _P],
+    "meterelf_match_corr": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
     "meterelf_stats": [_P, _I, _P, _P, _P],
+    "meterelf_stats_select": [_P, _P, _I, _P, _P],
     "meterelf_backhalf_planes": [_P, _P, _P, _I, _P, _I, _P, _P, _P],
     "meterelf_upsample_color_pack": [_P, _P, _P, _I, _P, _P, _P],
 }

@@ -23,6 +23,17 @@
 // template word (corr_dp4a.cuh, shared with K8). The box sum comes from
 // per-row window sums staged once per image. No superwindow is written: K2 reads the windows straight
 // from the crop at (mx, my).
+//
+// K5 `frontend_windows` (the same kernel, kWindows = true) replaces
+// meterelf_tpu/ops/pallas_frontend.py frontend_windows_pallas
+// (_frontend_windows_kernel), the METERELF_FRONTEND=merged variant: after
+// K1's correlation and argmax the same CTA reuses its shared memory for the
+// 4 dial windows at (mx + ox, my + oy), through K2's body
+// (window_bits.cuh), and writes K2's bits layout. It is specialised to 4
+// dials, as the TPU kernel is. What it saves over K1 then K2: one launch
+// and K2's second read of the window pixels (the crop is in L2 then
+// anyway); its bound is K1's operations plus K2's. The TPU kernel's
+// in-VMEM superwindow rotate and quad lane layout are not carried over.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
@@ -30,21 +41,32 @@
 #include "corr_dp4a.cuh"
 #include "exact_color.cuh"
 #include "meterelf_kernels.h"
+#include "window_bits.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kDials = 4;  // K5's dial count (pallas_frontend.py:498)
+
+struct WinGeom4 {
+  int ox[kDials], oy[kDials];  // window origin, template coords
+  int cx[kDials], cy[kDials];  // dial center, window coords
+  int cr[kDials][3];           // color range (h, l, s)
+};
 
 __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);
 }
 
+template <bool kWindows>
 __global__ void __launch_bounds__(kThreads)
     frontend_kernel(const int32_t* __restrict__ packed, int H, int W,
                     const uint8_t* __restrict__ tmpl, int th, int tw,
                     float c1, float c0, float* __restrict__ max_val,
                     int32_t* __restrict__ out_mx,
-                    int32_t* __restrict__ out_my) {
+                    int32_t* __restrict__ out_my, WinGeom4 wg,
+                    const uint8_t* __restrict__ disk, int hue_shift,
+                    int32_t* __restrict__ bits) {
   extern __shared__ __align__(16) unsigned char smem[];
   const corr8::Layout g = corr8::layout(H, W, th, tw);
   int8_t* sL = reinterpret_cast<int8_t*>(smem);
@@ -95,6 +117,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __shared__ float red_s[kThreads / 32];
   __shared__ int red_i[kThreads / 32];
+  __shared__ int s_mx, s_my;
   if ((tid & 31) == 0) {
     red_s[tid >> 5] = best;
     red_i[tid >> 5] = best_i;
@@ -108,26 +131,73 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     max_val[blockIdx.x] = best;
-    out_mx[blockIdx.x] = best_i % ow;
-    out_my[blockIdx.x] = best_i / ow;
+    out_mx[blockIdx.x] = s_mx = best_i % ow;
+    out_my[blockIdx.x] = s_my = best_i / ow;
   }
+  if constexpr (kWindows) {
+    // every thread is past the correlation: its staging is free again
+    __syncthreads();
+    winbits::Smem& sm = *reinterpret_cast<winbits::Smem*>(smem);
+    const int mx = s_mx, my = s_my;
+    for (int d = 0; d < kDials; ++d)
+      winbits::window_bits(
+          sm, img, W, mx + wg.ox[d], my + wg.oy[d], wg.cx[d], wg.cy[d],
+          wg.cr[d][0], wg.cr[d][1], wg.cr[d][2],
+          disk + (size_t)d * winbits::kPix, hue_shift,
+          bits + ((size_t)blockIdx.x * kDials + d) * winbits::kPix, kThreads);
+  }
+}
+
+int frontend_smem(int H, int W, int th, int tw, bool windows) {
+  const int bytes = corr8::layout(H, W, th, tw).bytes;
+  const int win = (int)sizeof(winbits::Smem);
+  return windows && win > bytes ? win : bytes;
+}
+
+template <bool kWindows>
+int launch(const int32_t* packed, int B, int H, int W, const uint8_t* tmpl,
+           int th, int tw, float c1, float c0, float* max_val, int32_t* mx,
+           int32_t* my, const WinGeom4& wg, const uint8_t* disk,
+           int hue_shift, int32_t* bits, void* stream) {
+  const int bytes = frontend_smem(H, W, th, tw, kWindows);
+  cudaError_t e = cudaFuncSetAttribute(
+      frontend_kernel<kWindows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return (int)e;
+  frontend_kernel<kWindows><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+      packed, H, W, tmpl, th, tw, c1, c0, max_val, mx, my, wg, disk,
+      hue_shift, bits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int meterelf_frontend_smem_bytes(int H, int W, int th, int tw) {
-  return corr8::layout(H, W, th, tw).bytes;
+  return frontend_smem(H, W, th, tw, false);
 }
 
 extern "C" int meterelf_frontend(const int32_t* packed, int B, int H, int W,
                                  const uint8_t* tmpl, int th, int tw,
                                  float c1, float c0, float* max_val,
                                  int32_t* mx, int32_t* my, void* stream) {
-  const int bytes = corr8::layout(H, W, th, tw).bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  frontend_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
-      packed, H, W, tmpl, th, tw, c1, c0, max_val, mx, my);
-  return (int)cudaGetLastError();
+  return launch<false>(packed, B, H, W, tmpl, th, tw, c1, c0, max_val, mx,
+                       my, WinGeom4{}, nullptr, 0, nullptr, stream);
+}
+
+extern "C" int meterelf_frontend_windows(
+    const int32_t* packed, int B, int H, int W, const uint8_t* tmpl, int th,
+    int tw, float c1, float c0, const int32_t* geom, const uint8_t* disk,
+    int hue_shift, float* max_val, int32_t* mx, int32_t* my, int32_t* bits,
+    void* stream) {
+  WinGeom4 wg;
+  for (int d = 0; d < kDials; ++d) {
+    const int32_t* q = geom + 7 * d;
+    wg.ox[d] = q[0];
+    wg.oy[d] = q[1];
+    wg.cx[d] = q[2];
+    wg.cy[d] = q[3];
+    for (int c = 0; c < 3; ++c) wg.cr[d][c] = q[4 + c];
+  }
+  return launch<true>(packed, B, H, W, tmpl, th, tw, c1, c0, max_val, mx, my,
+                      wg, disk, hue_shift, bits, stream);
 }

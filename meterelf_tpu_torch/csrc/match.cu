@@ -23,6 +23,14 @@
 // stages L' and T' in shared memory (153,400 bytes at the flagship
 // shape), and the correlation core of corr_dp4a.cuh computes 4 offsets a
 // thread with __dp4a; the whole map is written instead of an argmax.
+//
+// K9 `match_corr` (the same kernel, kScore = false) replaces
+// meterelf_tpu/ops/pallas_match.py match_scores_pallas (_corr_kernel),
+// the v1 scorer, which only the tests and experiments call: the exact
+// corr = sum L*T as an i32, written once as f32 [B, oh, ow] (rounded to
+// nearest). The box sum and corr - tmean * box stay outside, in torch, as
+// the JAX function keeps them outside its kernel (ops/match.py
+// match_scores_v1). Its bound is K8's operations.
 #include <cuda_runtime.h>
 
 #include "corr_dp4a.cuh"
@@ -32,6 +40,7 @@ namespace {
 
 constexpr int kThreads = 512;
 
+template <bool kScore>
 __global__ void __launch_bounds__(kThreads)
     match_kernel(const float* __restrict__ lightness, int H, int W,
                  const uint8_t* __restrict__ tmpl, int th, int tw,
@@ -64,12 +73,29 @@ __global__ void __launch_bounds__(kThreads)
         // unsigned: the terms wrap, the sum is the exact corr < 2^31
         const int corr = (int)((unsigned)acc[dx]
                                + 128u * (unsigned)box[dx] + t128);
-        const int bx = (int)((unsigned)box[dx] + n128);
-        out[y * ow + x0 + dx] = __fsub_rn(
-            __int2float_rn(corr), __fmul_rn(tmean, __int2float_rn(bx)));
+        if constexpr (kScore) {
+          const int bx = (int)((unsigned)box[dx] + n128);
+          out[y * ow + x0 + dx] = __fsub_rn(
+              __int2float_rn(corr), __fmul_rn(tmean, __int2float_rn(bx)));
+        } else {
+          out[y * ow + x0 + dx] = __int2float_rn(corr);
+        }
       }
     }
   }
+}
+
+template <bool kScore>
+int launch(const float* lightness, int B, int H, int W, const uint8_t* tmpl,
+           int th, int tw, int tsum, float tmean, float* out, void* stream) {
+  const int bytes = corr8::layout(H, W, th, tw).bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      match_kernel<kScore>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return (int)e;
+  match_kernel<kScore><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+      lightness, H, W, tmpl, th, tw, tsum, tmean, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -78,11 +104,13 @@ extern "C" int meterelf_match_scores(const float* lightness, int B, int H,
                                      int W, const uint8_t* tmpl, int th,
                                      int tw, int tsum, float tmean,
                                      float* scores, void* stream) {
-  const int bytes = corr8::layout(H, W, th, tw).bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  match_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
-      lightness, H, W, tmpl, th, tw, tsum, tmean, scores);
-  return (int)cudaGetLastError();
+  return launch<true>(lightness, B, H, W, tmpl, th, tw, tsum, tmean, scores,
+                      stream);
+}
+
+extern "C" int meterelf_match_corr(const float* lightness, int B, int H,
+                                   int W, const uint8_t* tmpl, int th, int tw,
+                                   int tsum, float* corr, void* stream) {
+  return launch<false>(lightness, B, H, W, tmpl, th, tw, tsum, 0.0f, corr,
+                       stream);
 }

@@ -26,6 +26,17 @@ int meterelf_frontend(const int32_t* packed, int B, int H, int W,
 // wrapper refuses geometries above the card's per-block limit.
 int meterelf_frontend_smem_bytes(int H, int W, int th, int tw);
 
+// K5: K1, then in the same block K2's windows of its 4 dials at the
+// located (mx, my). geom (HOST pointer) holds 7 ints per dial as K2's;
+// disk [4, 64, 64] u8. Out: max_val [B] f32, mx/my [B] i32 as K1's, bits
+// [B, 4, 64, 64] i32 as K2's.
+int meterelf_frontend_windows(const int32_t* packed, int B, int H, int W,
+                              const uint8_t* tmpl, int th, int tw,
+                              float c1, float c0, const int32_t* geom,
+                              const uint8_t* disk, int hue_shift,
+                              float* max_val, int32_t* mx, int32_t* my,
+                              int32_t* bits, void* stream);
+
 // K2: the D dial windows of each image at (mx + ox_d, my + oy_d):
 // exact HLS_FULL + hue shift, 5x5 center sample, inRange, 3x3 close.
 // geom (HOST pointer) holds 7 ints per dial: ox, oy, cx, cy, cr_h, cr_l,
@@ -59,11 +70,24 @@ int meterelf_match_scores(const float* lightness, int B, int H, int W,
                           const uint8_t* tmpl, int th, int tw, int tsum,
                           float tmean, float* scores, void* stream);
 
+// K9: the exact correlation corr = sum L*T (i32) of every offset, written
+// as f32 [B, H-th+1, W-tw+1]. lightness and tmpl as K8's.
+int meterelf_match_corr(const float* lightness, int B, int H, int W,
+                        const uint8_t* tmpl, int th, int tw, int tsum,
+                        float* corr, void* stream);
+
 // K4: per window, marching-squares areas and boundary counts per owner;
 // keymax = max(area2*4096 + owner) over owners with a boundary pixel,
 // else -1; has_any = any masked pixel. okey3 [K, 4096] i32.
 int meterelf_stats(const int32_t* okey3, int K, int32_t* keymax,
                    uint8_t* has_any, void* stream);
+
+// K7: okey [K, 4096] i32 = owner*4 + masked*2 + boundary, contrib [K,
+// 4096] i32 cell contributions (low 2 bits read). Out: keymax [K] i32 =
+// max(area2*4096 + owner) over owners with a boundary pixel, else -1,
+// both histograms binned under each pixel's owner.
+int meterelf_stats_select(const int32_t* okey, const int32_t* contrib,
+                          int K, int32_t* keymax, void* stream);
 
 // JPEG back-half geometry (HOST pointer geom, 10 ints): lh, lw (luma
 // plane of the coefficient window), oy, ox, rh, rw (crop in the window),

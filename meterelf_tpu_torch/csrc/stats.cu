@@ -21,6 +21,15 @@
 // 4096-bin histograms in shared memory (32 KB), the owner plane staged as
 // u16, and one block max. The TPU kernel's one-hot matmuls and row_spans
 // restriction exist for its matrix unit and are not carried over.
+//
+// K7 `stats_select` (the same kernel, kContribIn = true) replaces
+// meterelf_tpu/ops/pallas_stats.py stats_select (_stats_kernel), the
+// METERELF_QUAD_STATS=hist_pallas variant. Its okey is owner*4 +
+// masked*2 + boundary (K6's key) and the cell contributions come in
+// beside it, computed outside the kernel as the JAX graph does
+// (components.cell_contrib): bcount and area2 = sum (contrib & 3) are
+// binned under each pixel's own owner (owner 4096 drops out), and only
+// keymax is written. Its bound is its bytes (two i32 planes read).
 #include <cuda_runtime.h>
 
 #include "meterelf_kernels.h"
@@ -31,8 +40,13 @@ constexpr int kWin = 64;
 constexpr int kPix = kWin * kWin;
 constexpr int kThreads = 256;
 
+// kContribIn = false: K4, okey3 in, contributions from the owner plane,
+// keymax and has_any out. kContribIn = true: K7, okey and contrib in,
+// keymax out.
+template <bool kContribIn>
 __global__ void __launch_bounds__(kThreads)
-    stats_kernel(const int32_t* __restrict__ okey3,
+    stats_kernel(const int32_t* __restrict__ okey,
+                 const int32_t* __restrict__ contrib,
                  int32_t* __restrict__ keymax,
                  uint8_t* __restrict__ has_any) {
   __shared__ int bcount[kPix];
@@ -40,29 +54,35 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ uint16_t own[kPix];
   __shared__ int red[kThreads / 32];
   const int tid = threadIdx.x;
-  const int32_t* ok = okey3 + (size_t)blockIdx.x * kPix;
+  const int32_t* ok = okey + (size_t)blockIdx.x * kPix;
+  constexpr int kShift = kContribIn ? 2 : 3;
 
   int any = 0;
   for (int i = tid; i < kPix; i += kThreads) {
     const int v = ok[i];
     bcount[i] = 0;
     area2[i] = 0;
-    own[i] = (uint16_t)(v >> 3);
+    own[i] = (uint16_t)min((unsigned)v >> kShift, (unsigned)kPix);
     any |= (v >> 1) & 1;
   }
   __syncthreads();
   for (int i = tid; i < kPix; i += kThreads) {
     const int o = own[i];
     if (o < kPix && (ok[i] & 1)) atomicAdd(&bcount[o], 1);
-    const int r = i >> 6, c = i & 63;
-    if (r < kWin - 1 && c < kWin - 1) {
-      const int o00 = o, o01 = own[i + 1];
-      const int o10 = own[i + kWin], o11 = own[i + kWin + 1];
-      const int mn = min(min(o00, o01), min(o10, o11));
-      if (mn < kPix) {
-        const int k = (o00 == mn) + (o01 == mn) + (o10 == mn) + (o11 == mn);
-        const int cls = k == 4 ? 2 : (k == 3 ? 1 : 0);
-        if (cls) atomicAdd(&area2[mn], cls);
+    if constexpr (kContribIn) {
+      const int c = contrib[(size_t)blockIdx.x * kPix + i] & 3;
+      if (o < kPix && c) atomicAdd(&area2[o], c);
+    } else {
+      const int r = i >> 6, c = i & 63;
+      if (r < kWin - 1 && c < kWin - 1) {
+        const int o00 = o, o01 = own[i + 1];
+        const int o10 = own[i + kWin], o11 = own[i + kWin + 1];
+        const int mn = min(min(o00, o01), min(o10, o11));
+        if (mn < kPix) {
+          const int k = (o00 == mn) + (o01 == mn) + (o10 == mn) + (o11 == mn);
+          const int cls = k == 4 ? 2 : (k == 3 ? 1 : 0);
+          if (cls) atomicAdd(&area2[mn], cls);
+        }
       }
     }
   }
@@ -79,7 +99,7 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) {
     for (int w = 1; w < kThreads / 32; ++w) best = max(best, red[w]);
     keymax[blockIdx.x] = best;
-    has_any[blockIdx.x] = any != 0;
+    if constexpr (!kContribIn) has_any[blockIdx.x] = any != 0;
   }
 }
 
@@ -87,7 +107,15 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int meterelf_stats(const int32_t* okey3, int K, int32_t* keymax,
                               uint8_t* has_any, void* stream) {
-  stats_kernel<<<K, kThreads, 0, (cudaStream_t)stream>>>(okey3, keymax,
-                                                         has_any);
+  stats_kernel<false><<<K, kThreads, 0, (cudaStream_t)stream>>>(
+      okey3, nullptr, keymax, has_any);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int meterelf_stats_select(const int32_t* okey,
+                                     const int32_t* contrib, int K,
+                                     int32_t* keymax, void* stream) {
+  stats_kernel<true><<<K, kThreads, 0, (cudaStream_t)stream>>>(
+      okey, contrib, keymax, nullptr);
   return (int)cudaGetLastError();
 }

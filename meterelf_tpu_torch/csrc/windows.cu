@@ -15,18 +15,16 @@
 // raw/dilated masks in shared memory, so each pixel is read from device
 // memory once and each bit plane written once. The Dekker division and
 // the lane-rotated quad layout of the TPU kernel are not needed here:
-// __fdiv_rn is IEEE division, and each window is its own CTA.
+// __fdiv_rn is IEEE division, and each window is its own CTA. The window
+// body lives in window_bits.cuh, which K5 (frontend.cu) runs too.
 #include <cuda_runtime.h>
 
-#include "exact_color.cuh"
 #include "meterelf_kernels.h"
+#include "window_bits.cuh"
 
 namespace {
 
-constexpr int kWin = 64;
-constexpr int kPix = kWin * kWin;
 constexpr int kThreads = 256;
-constexpr int kPad = kWin + 2;
 constexpr int kMaxDials = 8;
 
 struct WinGeom {
@@ -35,91 +33,19 @@ struct WinGeom {
   int cr[kMaxDials][3];              // color range (h, l, s)
 };
 
-// Start of the 5x5 colour sample around centre c, as the JAX graph's
-// lax.dynamic_slice takes it: a negative start wraps (+64, Python-style
-// indexing), then the start is clamped so the sample stays in the window.
-// A centre at row/column 0 or 1 thus samples the window's far edge.
-__device__ __forceinline__ int sample_start(int c) {
-  int s = c - 2;
-  if (s < 0) s += kWin;
-  return min(max(s, 0), kWin - 5);
-}
-
 __global__ void __launch_bounds__(kThreads)
     windows_kernel(const int32_t* __restrict__ packed, int H, int W,
                    const int32_t* __restrict__ mx,
                    const int32_t* __restrict__ my, WinGeom g, int D,
                    const uint8_t* __restrict__ disk, int hue_shift,
                    int32_t* __restrict__ bits) {
-  __shared__ uint8_t sH[kPix], sL[kPix], sS[kPix];
-  __shared__ uint8_t sRaw[kPad * kPad];  // raw mask, border 0
-  __shared__ uint8_t sDil[kPad * kPad];  // dilated mask, border 1
-  __shared__ int sLo[3], sHi[3];
-  const int d = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int x0 = mx[b] + g.ox[d], y0 = my[b] + g.oy[d];
-  const int32_t* img = packed + (size_t)b * H * W;
-
-  for (int i = tid; i < kPad * kPad; i += kThreads) {
-    const int y = i / kPad, x = i - y * kPad;
-    if (y == 0 || y == kPad - 1 || x == 0 || x == kPad - 1) {
-      sRaw[i] = 0;
-      sDil[i] = 1;
-    }
-  }
-  for (int i = tid; i < kPix; i += kThreads) {
-    const int y = i >> 6, x = i & 63;
-    int h, l, s;
-    meterelf_hls(img[(y0 + y) * W + x0 + x], hue_shift, h, l, s);
-    sH[i] = (uint8_t)h;
-    sL[i] = (uint8_t)l;
-    sS[i] = (uint8_t)s;
-  }
-  __syncthreads();
-
-  if (tid < 3) {
-    // the 5x5 sample; a center within 2 px of the edge moves it as the
-    // reference path's dynamic slice does (sample_start)
-    const uint8_t* plane = tid == 0 ? sH : (tid == 1 ? sL : sS);
-    const int sx = sample_start(g.cx[d]);
-    const int sy = sample_start(g.cy[d]);
-    int sum = 0;
-    for (int yy = 0; yy < 5; ++yy)
-      for (int xx = 0; xx < 5; ++xx) sum += plane[(sy + yy) * kWin + sx + xx];
-    const int color = (2 * sum + 25) / 50;
-    sLo[tid] = min(max(color - g.cr[d][tid], 0), 255);
-    sHi[tid] = min(max(color + g.cr[d][tid], 0), 255);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < kPix; i += kThreads) {
-    const int y = i >> 6, x = i & 63;
-    const bool raw = sH[i] >= sLo[0] && sH[i] <= sHi[0] &&
-                     sL[i] >= sLo[1] && sL[i] <= sHi[1] &&
-                     sS[i] >= sLo[2] && sS[i] <= sHi[2];
-    sRaw[(y + 1) * kPad + x + 1] = raw;
-  }
-  __syncthreads();
-  for (int i = tid; i < kPix; i += kThreads) {
-    const int y = i >> 6, x = i & 63;
-    uint8_t v = 0;
-    for (int dy = 0; dy < 3; ++dy)
-      for (int dx = 0; dx < 3; ++dx) v |= sRaw[(y + dy) * kPad + x + dx];
-    sDil[(y + 1) * kPad + x + 1] = v;
-  }
-  __syncthreads();
-
-  const uint8_t* dk = disk + (size_t)d * kPix;
-  int32_t* out = bits + ((size_t)b * D + d) * kPix;
-  for (int i = tid; i < kPix; i += kThreads) {
-    const int y = i >> 6, x = i & 63;
-    int closed = 1;
-    for (int dy = 0; dy < 3; ++dy)
-      for (int dx = 0; dx < 3; ++dx)
-        closed &= sDil[(y + dy) * kPad + x + dx];
-    const int dsk = dk[i] != 0;
-    const int raw = sRaw[(y + 1) * kPad + x + 1];
-    out[i] = (closed & dsk) | (dsk << 1) | (closed << 2) | (raw << 3);
-  }
+  __shared__ winbits::Smem sm;
+  const int d = blockIdx.x, b = blockIdx.y;
+  winbits::window_bits(sm, packed + (size_t)b * H * W, W, mx[b] + g.ox[d],
+                       my[b] + g.oy[d], g.cx[d], g.cy[d], g.cr[d][0],
+                       g.cr[d][1], g.cr[d][2],
+                       disk + (size_t)d * winbits::kPix, hue_shift,
+                       bits + ((size_t)b * D + d) * winbits::kPix, kThreads);
 }
 
 }  // namespace

@@ -14,17 +14,19 @@ use (``_build.host_jpeg``); none needs libjpeg:
   general reader of ``decoder.c``, as the JAX reader hands it to libjpeg:
   16-bit DQT, truncated streams and restart resync come back read.
 - ``decoder.c`` decodes whole frames as libjpeg does, bit for bit
-  (progressive and sequential scans, any sampling up to 2x2, grayscale,
-  RGB, truncation and restart recovery). ``load_coef_feed`` uses it for
-  the fallback slots: the first ``fb_slots`` frames the coefficient
-  reader rejects (progressive, 4:4:4 or 4:2:2, Adobe RGB, ...) are
-  decoded to packed crops that the decode step scatters over the
-  back-half's output.
+  (progressive and sequential scans, Huffman or arithmetic coding,
+  sampling factors up to 4, grayscale, RGB, truncation and restart
+  recovery, block smoothing of incomplete progressive images). It reads
+  every stream libjpeg's 8-bit BGR decode reads. ``load_coef_feed`` uses
+  it for the fallback slots: the first ``fb_slots`` frames the
+  coefficient reader rejects (progressive, arithmetic-coded, 4:4:4 or
+  4:2:2, Adobe RGB, sequential in several scans, ...) are decoded to
+  packed crops that the decode step scatters over the back-half's output.
 
-What the general decoder still refuses, where libjpeg reads the stream:
-arithmetic coding, sampling factors above 2, and progressive streams
-whose first AC bands never reach their last refinement (libjpeg smooths
-those blocks). Such frames get ``load_ok=False``.
+A sequential 4:2:0 frame in several scans is read differently from the
+JAX feed on purpose: the JAX reader's libjpeg path can stop inside its
+first (Y) scan and hand on zero chroma (ROADMAP, open faults on the
+reference side); here the frame takes a fallback slot.
 
 One difference from the JAX package: every call returns freshly
 allocated arrays that the caller owns; the JAX feed hands out

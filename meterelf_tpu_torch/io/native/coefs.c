@@ -8,8 +8,10 @@
  * workers) that needs no libjpeg. A stream the fast reader rejects
  * (16-bit DQT, truncation, a restart mismatch, stray markers, missing
  * tables, ...) goes to decoder.c's mej_general_coefs, as the JAX reader
- * hands it to libjpeg's jpeg_read_coefficients; progressive, non-4:2:0
- * and non-YCbCr streams stay rejected there, as in the JAX reader. The
+ * hands it to libjpeg's jpeg_read_coefficients; progressive,
+ * arithmetic-coded, non-4:2:0 and non-YCbCr streams stay rejected there,
+ * as in the JAX reader (rc 6), and so does a sequential frame in several
+ * scans, which the JAX reader misreads (decoder.c). The
  * marker parser, the Huffman tables and their per-thread cache (which
  * compares the stored definition with memcmp on a hash hit) live in
  * jpeg_common.c. Built with decoder.c and jpeg_common.c into one library

@@ -1,36 +1,48 @@
 /* decoder.c — the port's general JPEG decoder, without libjpeg.
  *
- * Reads every stream class the JAX package's libjpeg build reads on the
- * pixel and coefficient paths, and produces libjpeg's output bit for bit:
+ * Reads every stream class the JAX package's libjpeg build (libjpeg-turbo
+ * 2.1, 8-bit, BGR out) reads on the pixel and coefficient paths, and
+ * produces libjpeg's output bit for bit:
  *
  *  - SOF0/SOF1 sequential and SOF2 progressive Huffman scans (DC first
  *    and refine, AC first and refine with EOB runs), interleaved or not,
  *    in any number of scans (jdhuff.c, jdphuff.c);
- *  - 8-bit and 16-bit DQT, the standard Huffman tables where a table id
- *    0/1 was never defined (jstdhuff.c);
+ *  - SOF9 sequential and SOF10 progressive arithmetic-coded scans
+ *    (jdarith.c: the Q-coder with its probability table, the DC and AC
+ *    statistics bins, DAC conditioning and its defaults, restarts, and
+ *    libjpeg's handling of bad data: a spectral or magnitude overflow
+ *    stops the decoder until the next restart, a marker met in the data
+ *    is read as zeros);
+ *  - 8-bit and 16-bit DQT, the standard Huffman tables where a sequential
+ *    image's table id 0/1 was never defined (jstdhuff.c; a progressive
+ *    image gets none, as in jdphuff.c);
  *  - restart intervals, with libjpeg's resync when a marker is missing or
  *    out of sequence (jdmarker.c read_restart_marker,
  *    jpeg_resync_to_restart);
  *  - truncated and corrupt data as libjpeg's memory source and Huffman
- *    decoder handle it: past the end the stream reads as an EOI marker;
- *    a decode that needs bits past a marker gets zero bits and sets the
- *    segment's "insufficient data" flag, after which whole MCUs are
- *    skipped (left zero) until a restart marker clears it;
- *  - 1 or 3 components at sampling factors up to 2x2;
+ *    decoder handle it: past the end the stream reads as an EOI marker
+ *    (FF D9, also inside a segment that the end cuts); a decode that
+ *    needs bits past a marker gets zero bits and sets the segment's
+ *    "insufficient data" flag, after which whole MCUs are skipped (left
+ *    zero) until a restart marker clears it;
+ *  - block smoothing of a progressive image whose first AC bands are not
+ *    all final (libjpeg-turbo 2.1's jdcoefct.c: the 5x5 DC neighbourhood,
+ *    DC interpolation where no AC band was seen, the progression status
+ *    before the last scan for the iMCU rows past where its data ended);
+ *  - 1 or 3 components at sampling factors 1 to 4, with libjpeg's MCU
+ *    limit of 10 blocks and its upsamplers (jdsample.c: fancy h2v1, h1v2
+ *    and h2v2 where the ratio is 2, plain replication for h2v1/h2v2 when
+ *    the component is at most 2 samples wide, int_upsample for the other
+ *    integral ratios);
  *  - the ISLOW IDCT as libjpeg-turbo's x86 SIMD code computes it (equal
  *    to jidctint.c on well-formed data; idct_block says where not);
- *  - fancy upsampling (jdsample.c h2v1, h1v2, h2v2; plain replication
- *    for h2v1/h2v2 when the component is at most 2 samples wide);
  *  - YCbCr -> BGR through libjpeg's fixed-point tables (jdcolor.c), RGB
  *    (Adobe APP14 transform 0, or component ids 'R','G','B'), grayscale
  *    (replicated to 3 channels, as the JAX reader does).
  *
- * It refuses (MEJ_REFUSED; the caller reports the frame not loaded) what
- * libjpeg reads but it does not: arithmetic coding, sampling factors
- * above 2, and a progressive stream whose AC bands 1-9 did not all reach
- * their last refinement (libjpeg then applies block smoothing). What
- * libjpeg refuses (12-bit, lossless, CMYK/YCCK to BGR, bad markers) is
- * refused as an error.
+ * What libjpeg refuses (12-bit, lossless, hierarchical, CMYK/YCCK to BGR,
+ * a sampling ratio that is not an integer, more than 10 blocks in an MCU,
+ * bad markers and tables) is refused as an error (MEJ_ERROR).
  *
  * Entry points (plain C, GIL-free, pthreads):
  *  - mej_decode_full_batch: whole frames as BGR;
@@ -38,7 +50,10 @@
  *    b | g<<8 | r<<16 into a zero-padded [ph, pw] i32 slot;
  *  - mej_general_coefs: the coefficient window, for coefs.c's batch
  *    reader when its fast path rejects a stream (the JAX reader's
- *    jpeg_read_coefficients path).
+ *    jpeg_read_coefficients path). It refuses (MEJ_REFUSED) a sequential
+ *    4:2:0 frame in several scans, which the JAX reader misreads
+ *    (ROADMAP, open faults on the reference side): such a frame goes to
+ *    the feed's fallback slots, decoded whole.
  */
 
 #include <stdint.h>
@@ -99,6 +114,8 @@ typedef struct {
     int dw, dh;               /* downsampled size in samples */
     int16_t *coef;            /* [bh][bw][64], natural order */
     int coef_bits[64];        /* progressive: last Al per band, -1 unseen */
+    int prev_bits[64];        /* coef_bits before the last scan of this
+                               * component (jdphuff.c, jdarith.c) */
     int latched;              /* quant table latched at its first scan */
     uint16_t qt[64];
 } dcomp;
@@ -108,7 +125,9 @@ typedef struct {
     mej_hdr h;
     dcomp c[MEJ_MAX_COMPS];
     int maxh, maxv, mcux, mcuy;
-    int progressive;
+    int progressive, arith;
+    int scan_number;          /* libjpeg's input_scan_number */
+    int last_good;            /* last_good_iMCU_row (jdcoefct.c) */
     /* bit reader: acc is top-aligned, bits below the n valid ones zero */
     uint64_t acc;
     int n;
@@ -116,6 +135,14 @@ typedef struct {
     int next_restart_num;
     int last_dc[MEJ_MAX_COMPS];
     int eobrun;
+    /* arithmetic decoder (jdarith.c): C and A registers, bit counter
+     * (-16 before the first two bytes, -1 after an error), DC context per
+     * scan slot, statistics bins per table, the fixed 0.5 bin */
+    int64_t ac_c, ac_a;
+    int ac_ct;
+    int dc_context[MEJ_MAX_COMPS];
+    uint8_t dc_stats[16][64], ac_stats[16][256];
+    uint8_t fixed_bin[4];
 } jdec;
 
 /* ---------------------------- bit reader ---------------------------- */
@@ -124,11 +151,16 @@ static void br_fill(jdec *d)
 {
     mej_src *s = &d->s;
     while (d->n <= 56 && s->unread_marker == 0) {
-        if (s->p >= s->end) {
+        int c;
+        if (s->p < s->end) {
+            c = *s->p++;
+        } else if (s->fake_d9) {              /* the D9 of a fake EOI */
+            s->fake_d9 = 0;
+            c = 0xD9;
+        } else {
             s->unread_marker = 0xD9;          /* the source's fake EOI */
             break;
         }
-        int c = *s->p++;
         if (c == 0xFF) {
             int c2 = 0xD9;
             while (s->p < s->end && (c2 = *s->p++) == 0xFF)
@@ -233,10 +265,9 @@ static void resync_to_restart(jdec *d, int desired)
     }
 }
 
-static void process_restart(jdec *d)
+/* jdmarker.c read_restart_marker */
+static void read_restart_marker(jdec *d)
 {
-    d->acc = 0;
-    d->n = 0;
     if (d->s.unread_marker == 0)
         mej_next_marker(&d->s);
     if (d->s.unread_marker == 0xD0 + d->next_restart_num)
@@ -244,6 +275,13 @@ static void process_restart(jdec *d)
     else
         resync_to_restart(d, d->next_restart_num);
     d->next_restart_num = (d->next_restart_num + 1) & 7;
+}
+
+static void process_restart(jdec *d)
+{
+    d->acc = 0;
+    d->n = 0;
+    read_restart_marker(d);
     for (int i = 0; i < MEJ_MAX_COMPS; i++)
         d->last_dc[i] = 0;
     d->eobrun = 0;
@@ -253,16 +291,20 @@ static void process_restart(jdec *d)
 
 /* ---------------------------- frame setup ---------------------------- */
 
+/* upsampling methods (upsampler, by component_plane) */
+enum { UP_FULL, UP_H2V1, UP_H1V2, UP_H2V2, UP_INT, UP_FRACT };
+static int upsampler(const jdec *d, const dcomp *k);
+
 static int setup_frame(jdec *d)
 {
     mej_hdr *h = &d->h;
     if (h->precision != 8)
         return MEJ_ERROR;         /* JERR_BAD_PRECISION (8-bit libjpeg) */
-    d->progressive = h->sof == 0xC2;
+    d->progressive = h->sof == 0xC2 || h->sof == 0xCA;
+    d->arith = h->sof == 0xC9 || h->sof == 0xCA;
+    d->fixed_bin[0] = 113;    /* jinit_arith_decoder */
     d->maxh = d->maxv = 1;
     for (int c = 0; c < h->ncomp; c++) {
-        if (h->comp[c].h > 2 || h->comp[c].v > 2)
-            return MEJ_REFUSED;
         if (h->comp[c].h > d->maxh)
             d->maxh = h->comp[c].h;
         if (h->comp[c].v > d->maxv)
@@ -284,9 +326,13 @@ static int setup_frame(jdec *d)
                                     sizeof(int16_t));
         if (!k->coef)
             return MEJ_ERROR;
-        for (int i = 0; i < 64; i++)
+        for (int i = 0; i < 64; i++) {
             k->coef_bits[i] = -1;
+            k->prev_bits[i] = 0;
+        }
         k->latched = 0;
+        if (upsampler(d, k) == UP_FRACT)
+            return MEJ_ERROR;     /* JERR_FRACT_SAMPLE_NOTIMPL */
     }
     return 0;
 }
@@ -300,7 +346,9 @@ static void free_frame(jdec *d)
 }
 
 /* the decoding table of a scan's table id, or NULL (libjpeg:
- * JERR_NO_HUFF_TABLE / JERR_BAD_HUFF_TABLE) */
+ * JERR_NO_HUFF_TABLE / JERR_BAD_HUFF_TABLE). An undefined id 0 or 1 takes
+ * the standard table in a sequential image (jdhuff.c installs them); the
+ * progressive decoder installs none (jdphuff.c). */
 static const mej_htbl *scan_table(jdec *d, int cls, int id)
 {
     if (id < 0 || id > 3)
@@ -313,13 +361,268 @@ static const mej_htbl *scan_table(jdec *d, int cls, int id)
                 if (t->syms[i] > 15)
                     return NULL;
         r = mej_htbl_cached(t->counts, t->syms, t->nsym);
-    } else if (id <= 1) {
+    } else if (id <= 1 && !d->progressive) {
         r = cls ? mej_htbl_cached(std_ac_counts[id], std_ac_syms[id], 162)
                 : mej_htbl_cached(std_dc_counts[id], std_dc_syms, 12);
     } else {
         r = NULL;
     }
     return r;
+}
+
+/* ------------------------ arithmetic decoding ------------------------ */
+
+/* jaricom.c jpeg_aritab: T.81 Table D.2, Qe << 16 | Next_Index_MPS << 8 |
+ * Switch_MPS << 7 | Next_Index_LPS; the last entry is the fixed 0.5
+ * estimate (T.851) */
+#define AV(a, b, c, d) (((int64_t)(a) << 16) | ((c) << 8) | ((d) << 7) | (b))
+static const int64_t aritab[114] = {
+    AV(0x5a1d, 1, 1, 1), AV(0x2586, 14, 2, 0), AV(0x1114, 16, 3, 0),
+    AV(0x080b, 18, 4, 0), AV(0x03d8, 20, 5, 0), AV(0x01da, 23, 6, 0),
+    AV(0x00e5, 25, 7, 0), AV(0x006f, 28, 8, 0), AV(0x0036, 30, 9, 0),
+    AV(0x001a, 33, 10, 0), AV(0x000d, 35, 11, 0), AV(0x0006, 9, 12, 0),
+    AV(0x0003, 10, 13, 0), AV(0x0001, 12, 13, 0), AV(0x5a7f, 15, 15, 1),
+    AV(0x3f25, 36, 16, 0), AV(0x2cf2, 38, 17, 0), AV(0x207c, 39, 18, 0),
+    AV(0x17b9, 40, 19, 0), AV(0x1182, 42, 20, 0), AV(0x0cef, 43, 21, 0),
+    AV(0x09a1, 45, 22, 0), AV(0x072f, 46, 23, 0), AV(0x055c, 48, 24, 0),
+    AV(0x0406, 49, 25, 0), AV(0x0303, 51, 26, 0), AV(0x0240, 52, 27, 0),
+    AV(0x01b1, 54, 28, 0), AV(0x0144, 56, 29, 0), AV(0x00f5, 57, 30, 0),
+    AV(0x00b7, 59, 31, 0), AV(0x008a, 60, 32, 0), AV(0x0068, 62, 33, 0),
+    AV(0x004e, 63, 34, 0), AV(0x003b, 32, 35, 0), AV(0x002c, 33, 9, 0),
+    AV(0x5ae1, 37, 37, 1), AV(0x484c, 64, 38, 0), AV(0x3a0d, 65, 39, 0),
+    AV(0x2ef1, 67, 40, 0), AV(0x261f, 68, 41, 0), AV(0x1f33, 69, 42, 0),
+    AV(0x19a8, 70, 43, 0), AV(0x1518, 72, 44, 0), AV(0x1177, 73, 45, 0),
+    AV(0x0e74, 74, 46, 0), AV(0x0bfb, 75, 47, 0), AV(0x09f8, 77, 48, 0),
+    AV(0x0861, 78, 49, 0), AV(0x0706, 79, 50, 0), AV(0x05cd, 48, 51, 0),
+    AV(0x04de, 50, 52, 0), AV(0x040f, 50, 53, 0), AV(0x0363, 51, 54, 0),
+    AV(0x02d4, 52, 55, 0), AV(0x025c, 53, 56, 0), AV(0x01f8, 54, 57, 0),
+    AV(0x01a4, 55, 58, 0), AV(0x0160, 56, 59, 0), AV(0x0125, 57, 60, 0),
+    AV(0x00f6, 58, 61, 0), AV(0x00cb, 59, 62, 0), AV(0x00ab, 61, 63, 0),
+    AV(0x008f, 61, 32, 0), AV(0x5b12, 65, 65, 1), AV(0x4d04, 80, 66, 0),
+    AV(0x412c, 81, 67, 0), AV(0x37d8, 82, 68, 0), AV(0x2fe8, 83, 69, 0),
+    AV(0x293c, 84, 70, 0), AV(0x2379, 86, 71, 0), AV(0x1edf, 87, 72, 0),
+    AV(0x1aa9, 87, 73, 0), AV(0x174e, 72, 74, 0), AV(0x1424, 72, 75, 0),
+    AV(0x119c, 74, 76, 0), AV(0x0f6b, 74, 77, 0), AV(0x0d51, 75, 78, 0),
+    AV(0x0bb6, 77, 79, 0), AV(0x0a40, 77, 48, 0), AV(0x5832, 80, 81, 1),
+    AV(0x4d1c, 88, 82, 0), AV(0x438e, 89, 83, 0), AV(0x3bdd, 90, 84, 0),
+    AV(0x34ee, 91, 85, 0), AV(0x2eae, 92, 86, 0), AV(0x299a, 93, 87, 0),
+    AV(0x2516, 86, 71, 0), AV(0x5570, 88, 89, 1), AV(0x4ca9, 95, 90, 0),
+    AV(0x44d9, 96, 91, 0), AV(0x3e22, 97, 92, 0), AV(0x3824, 99, 93, 0),
+    AV(0x32b4, 99, 94, 0), AV(0x2e17, 93, 86, 0), AV(0x56a8, 95, 96, 1),
+    AV(0x4f46, 101, 97, 0), AV(0x47e5, 102, 98, 0), AV(0x41cf, 103, 99, 0),
+    AV(0x3c3d, 104, 100, 0), AV(0x375e, 99, 93, 0), AV(0x5231, 105, 102, 0),
+    AV(0x4c0f, 106, 103, 0), AV(0x4639, 107, 104, 0),
+    AV(0x415e, 103, 99, 0), AV(0x5627, 105, 106, 1),
+    AV(0x50e7, 108, 107, 0), AV(0x4b85, 109, 103, 0),
+    AV(0x5597, 110, 109, 0), AV(0x504f, 111, 107, 0),
+    AV(0x5a10, 110, 111, 1), AV(0x5522, 112, 109, 0),
+    AV(0x59eb, 112, 111, 1), AV(0x5a1d, 113, 113, 0)};
+#undef AV
+
+/* jdarith.c get_byte over the memory source: past the end the source
+ * supplies a fake EOI, FF D9, again and again */
+static int arith_byte(jdec *d)
+{
+    if (d->s.p < d->s.end)
+        return *d->s.p++;
+    d->s.fake_d9 ^= 1;
+    return d->s.fake_d9 ? 0xFF : 0xD9;
+}
+
+/* jdarith.c arith_decode: one binary decision with the estimate in *st.
+ * A marker met in the data is legal: it is kept as the unread marker and
+ * zero bytes are fed from then on. */
+static int arith_decode(jdec *d, uint8_t *st)
+{
+    while (d->ac_a < 0x8000) {
+        if (--d->ac_ct < 0) {
+            int data;
+            if (d->s.unread_marker) {
+                data = 0;
+            } else {
+                data = arith_byte(d);
+                if (data == 0xFF) {
+                    do
+                        data = arith_byte(d);
+                    while (data == 0xFF);
+                    if (data == 0) {
+                        data = 0xFF;          /* a stuffed zero */
+                    } else {
+                        d->s.unread_marker = data;
+                        data = 0;
+                    }
+                }
+            }
+            d->ac_c = (d->ac_c << 8) | data;
+            if ((d->ac_ct += 8) < 0)          /* still filling */
+                if (++d->ac_ct == 0)          /* got the 2 initial bytes */
+                    d->ac_a = 0x8000;         /* 0x10000 after the shift */
+        }
+        d->ac_a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = aritab[sv & 0x7F];
+    int nl = (int)(qe & 0xFF);
+    qe >>= 8;
+    int nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = d->ac_a - qe;
+    d->ac_a = temp;
+    temp <<= d->ac_ct;
+    if (d->ac_c >= temp) {
+        d->ac_c -= temp;
+        if (d->ac_a < qe) {                   /* conditional exchange */
+            d->ac_a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            d->ac_a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+    } else if (d->ac_a < 0x8000) {
+        if (d->ac_a < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+/* the statistics a scan (re)starts with (jdarith.c start_pass and
+ * process_restart), and the decoder registers */
+static void arith_reset(jdec *d)
+{
+    const mej_hdr *h = &d->h;
+    for (int i = 0; i < h->ns; i++) {
+        if (!d->progressive || (h->Ss == 0 && h->Ah == 0)) {
+            memset(d->dc_stats[h->sdc[i]], 0, 64);
+            d->last_dc[i] = 0;
+            d->dc_context[i] = 0;
+        }
+        if (!d->progressive || h->Ss)
+            memset(d->ac_stats[h->sac[i]], 0, 256);
+    }
+    d->ac_c = 0;
+    d->ac_a = 0;
+    d->ac_ct = -16;
+}
+
+/* Figures F.19-F.24: a DC difference into slot's predictor; -1 on a
+ * magnitude overflow (JWRN_ARITH_BAD_CODE: the decoder stops, ct = -1) */
+static int arith_dc(jdec *d, int slot, int tbl)
+{
+    uint8_t *st = d->dc_stats[tbl] + d->dc_context[slot];
+    if (arith_decode(d, st) == 0) {
+        d->dc_context[slot] = 0;
+        return 0;
+    }
+    int sign = arith_decode(d, st + 1);
+    st += 2 + sign;
+    int m = arith_decode(d, st);
+    if (m) {
+        st = d->dc_stats[tbl] + 20;
+        while (arith_decode(d, st)) {
+            if ((m <<= 1) == 0x8000) {
+                d->ac_ct = -1;
+                return -1;
+            }
+            st++;
+        }
+    }
+    if (m < (int)((1L << d->h.arith_dc_L[tbl]) >> 1))
+        d->dc_context[slot] = 0;
+    else if (m > (int)((1L << d->h.arith_dc_U[tbl]) >> 1))
+        d->dc_context[slot] = 12 + sign * 4;
+    else
+        d->dc_context[slot] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+        if (arith_decode(d, st))
+            v |= m;
+    v += 1;
+    if (sign)
+        v = -v;
+    d->last_dc[slot] = (d->last_dc[slot] + v) & 0xffff;
+    return 0;
+}
+
+/* Figure F.20: the band Ss..Se of one block (decode_mcu with 1..63, and
+ * decode_mcu_AC_first); -1 on a spectral or magnitude overflow */
+static int arith_ac(jdec *d, int16_t *o, int tbl, int Ss, int Se, int Al)
+{
+    for (int k = Ss; k <= Se; k++) {
+        uint8_t *st = d->ac_stats[tbl] + 3 * (k - 1);
+        if (arith_decode(d, st))
+            break;                            /* EOB */
+        while (arith_decode(d, st + 1) == 0) {
+            st += 3;
+            if (++k > Se) {
+                d->ac_ct = -1;                /* spectral overflow */
+                return -1;
+            }
+        }
+        int sign = arith_decode(d, d->fixed_bin);
+        st += 2;
+        int m = arith_decode(d, st);
+        if (m && arith_decode(d, st)) {
+            m <<= 1;
+            st = d->ac_stats[tbl] + (k <= d->h.arith_ac_K[tbl] ? 189 : 217);
+            while (arith_decode(d, st)) {
+                if ((m <<= 1) == 0x8000) {
+                    d->ac_ct = -1;            /* magnitude overflow */
+                    return -1;
+                }
+                st++;
+            }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+            if (arith_decode(d, st))
+                v |= m;
+        v += 1;
+        if (sign)
+            v = -v;
+        o[jpeg_natural_order[k]] = (int16_t)((unsigned)v << Al);
+    }
+    return 0;
+}
+
+/* decode_mcu_AC_refine, one block */
+static void arith_ac_refine(jdec *d, int16_t *o, int tbl, int Ss, int Se,
+                            int Al)
+{
+    const int p1 = 1 << Al, m1 = (int)(~0u << Al);
+    int kex;
+    for (kex = Se; kex > 0; kex--)            /* the previous stage's EOB */
+        if (o[jpeg_natural_order[kex]])
+            break;
+    for (int k = Ss; k <= Se; k++) {
+        uint8_t *st = d->ac_stats[tbl] + 3 * (k - 1);
+        if (k > kex && arith_decode(d, st))
+            break;                            /* EOB */
+        for (;;) {
+            int16_t *c = o + jpeg_natural_order[k];
+            if (*c) {                         /* previously nonzero */
+                if (arith_decode(d, st + 2))
+                    *c = (int16_t)(*c < 0 ? *c + (int16_t)m1
+                                          : *c + (int16_t)p1);
+                break;
+            }
+            if (arith_decode(d, st + 1)) {    /* newly nonzero */
+                *c = (int16_t)(arith_decode(d, d->fixed_bin) ? m1 : p1);
+                break;
+            }
+            st += 3;
+            if (++k > Se) {
+                d->ac_ct = -1;                /* spectral overflow */
+                return;
+            }
+        }
+    }
 }
 
 /* ---------------------------- scans ---------------------------- */
@@ -448,6 +751,44 @@ static void block_ac_refine(jdec *d, int16_t *o, const mej_htbl *ac,
     }
 }
 
+/* One MCU of an arithmetic-coded scan (jdarith.c decode_mcu,
+ * decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine). After an
+ * error (ct = -1) the MCUs up to the next restart are left as they are;
+ * DC refinement does not check it. */
+static void decode_mcu_arith(jdec *d, int kind, int16_t **blk,
+                             const mcu_block *mb, int nb)
+{
+    const mej_hdr *h = &d->h;
+    if (kind == DC_REFINE) {
+        for (int b = 0; b < nb; b++)
+            if (arith_decode(d, d->fixed_bin))
+                blk[b][0] |= (int16_t)(1 << h->Al);
+        return;
+    }
+    if (d->ac_ct == -1)
+        return;
+    if (kind == AC_FIRST) {
+        arith_ac(d, blk[0], h->sac[0], h->Ss, h->Se, h->Al);
+        return;
+    }
+    if (kind == AC_REFINE) {
+        arith_ac_refine(d, blk[0], h->sac[0], h->Ss, h->Se, h->Al);
+        return;
+    }
+    for (int b = 0; b < nb; b++) {
+        const int slot = mb[b].slot;
+        if (arith_dc(d, slot, h->sdc[slot]))
+            return;
+        if (kind == DC_FIRST) {
+            blk[b][0] = (int16_t)((unsigned)d->last_dc[slot] << h->Al);
+        } else {
+            blk[b][0] = (int16_t)d->last_dc[slot];
+            if (arith_ac(d, blk[b], h->sac[slot], 1, 63, 0))
+                return;
+        }
+    }
+}
+
 /* Decode one scan (the SOS just read), stopping after stop_rows MCU rows
  * (< 0: all). Returns 0 or an error. */
 static int decode_scan(jdec *d, int stop_rows)
@@ -490,9 +831,12 @@ static int decode_scan(jdec *d, int stop_rows)
     const mej_htbl *dct[MEJ_MAX_COMPS] = {0}, *act[MEJ_MAX_COMPS] = {0};
     const int Ss = h->Ss, Se = h->Se, Ah = h->Ah, Al = h->Al;
     int kind;
+    d->scan_number++;
     if (!d->progressive) {
+        /* arithmetic sequential scans take 1..63 whatever Ss, Se, Ah and
+         * Al say (jdarith.c warns only); Huffman ones need their tables */
         kind = SEQUENTIAL;
-        for (int i = 0; i < ns; i++) {
+        for (int i = 0; !d->arith && i < ns; i++) {
             dct[i] = scan_table(d, 0, h->sdc[i]);
             act[i] = scan_table(d, 1, h->sac[i]);
             if (!dct[i] || !act[i])
@@ -506,9 +850,15 @@ static int decode_scan(jdec *d, int stop_rows)
         kind = dc_band ? (Ah == 0 ? DC_FIRST : DC_REFINE)
                        : (Ah == 0 ? AC_FIRST : AC_REFINE);
         for (int i = 0; i < ns; i++) {
+            /* progression status, and its state before this scan, which
+             * block smoothing reads (start_pass_phuff_decoder) */
             dcomp *k = &d->c[h->scomp[i]];
+            for (int j = Ss < 1 ? Ss : 1; j <= (Se > 9 ? Se : 9); j++)
+                k->prev_bits[j] = d->scan_number > 1 ? k->coef_bits[j] : 0;
             for (int j = Ss; j <= Se; j++)
                 k->coef_bits[j] = Al;
+            if (d->arith)
+                continue;
             if (kind == DC_FIRST && !(dct[i] = scan_table(d, 0, h->sdc[i])))
                 return MEJ_ERROR;
             if (!dc_band && !(act[i] = scan_table(d, 1, h->sac[i])))
@@ -523,26 +873,43 @@ static int decode_scan(jdec *d, int stop_rows)
     d->next_restart_num = 0;
     for (int i = 0; i < MEJ_MAX_COMPS; i++)
         d->last_dc[i] = 0;
+    if (d->arith)
+        arith_reset(d);
     const int dri = h->dri;
     int togo = dri;
     if (stop_rows >= 0 && stop_rows < mcuy)
         mcuy = stop_rows;
+    /* block rows of an iMCU row: a non-interleaved scan's MCU is a block */
+    const int imcu_v = ns == 1 ? d->c[h->scomp[0]].v : 1;
 
     for (int my = 0; my < mcuy; my++) {
         for (int mx = 0; mx < mcux; mx++) {
             if (dri && togo == 0) {
-                process_restart(d);
+                if (d->arith) {
+                    read_restart_marker(d);
+                    arith_reset(d);
+                } else {
+                    process_restart(d);
+                }
                 togo = dri;
             }
-            /* DC refinement reads on past the data (zero bits change
-             * nothing); the other kinds leave a whole MCU untouched once
-             * the segment ran out of data */
-            if (kind == DC_REFINE || !d->insufficient) {
+            if (!d->insufficient)
+                d->last_good = my / imcu_v;
+            int16_t *blk[MAX_BLOCKS_IN_MCU];
+            for (int b = 0; b < nb; b++) {
+                dcomp *k = &d->c[mb[b].comp];
+                blk[b] = ns == 1 ? block_at(k, mx, my)
+                    : block_at(k, mx * k->h + mb[b].dx,
+                               my * k->v + mb[b].dy);
+            }
+            if (d->arith) {
+                decode_mcu_arith(d, kind, blk, mb, nb);
+            } else if (kind == DC_REFINE || !d->insufficient) {
+                /* DC refinement reads on past the data (zero bits change
+                 * nothing); the other kinds leave a whole MCU untouched
+                 * once the segment ran out of data */
                 for (int b = 0; b < nb; b++) {
-                    dcomp *k = &d->c[mb[b].comp];
-                    int16_t *o = ns == 1 ? block_at(k, mx, my)
-                        : block_at(k, mx * k->h + mb[b].dx,
-                                   my * k->v + mb[b].dy);
+                    int16_t *o = blk[b];
                     const int slot = mb[b].slot;
                     switch (kind) {
                     case SEQUENTIAL:
@@ -602,9 +969,11 @@ static int decode_all(jdec *d)
     }
 }
 
-/* jdcoefct.c smoothing_ok: libjpeg smooths a progressive image whose DC
- * is known but whose AC bands 1-9 are not all final. */
-static int needs_smoothing(jdec *d)
+/* jdcoefct.c smoothing_ok (libjpeg-turbo 2.1): a progressive image is
+ * smoothed when every component's quant table is latched with its DC and
+ * first 9 AC values nonzero, every DC is at least partly known, and some
+ * component's zigzag coefficients 1-9 are not all final. */
+static int smoothing_ok(jdec *d)
 {
     static const int qpos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
     if (!d->progressive)
@@ -731,8 +1100,193 @@ static void idct_block(const int16_t *coef, const uint16_t *qt,
     }
 }
 
-/* component c's samples upsampled to the output size [H][W] */
-static int component_plane(jdec *d, int c, uint8_t *up)
+/* libjpeg-turbo 2.1's block smoothing (jdcoefct.c
+ * decompress_smooth_data) of component ci into its sample plane sp (row
+ * stride ps): the first 9 AC coefficients of each block that are still
+ * zero and not known to full precision are estimated from the DC values
+ * of the 5x5 blocks around it; where no AC band has been seen at all the
+ * DC is interpolated too. An iMCU row past the last one the final scan
+ * decoded with data (last_good_iMCU_row) reads the progression status as
+ * it stood before that scan. The neighbours are fetched as libjpeg does:
+ * the rows two above and below come from the previous and next block
+ * row only when the block row or the iMCU row allows it (so in the second
+ * and the next-to-last iMCU rows of a component with 2 block rows an
+ * iMCU row the outer ones repeat the inner), the columns through its
+ * sliding registers (so a 1- or 2-block-wide component reads stale values
+ * at its right edge). Blocks libjpeg never outputs (padding) are
+ * transformed plainly. */
+static int16_t smooth_pred(int64_t num, int64_t q, int Al)
+{
+    int pred = (int)((((q << 7) + (num >= 0 ? num : -num))) / (q << 8));
+    if (Al > 0 && pred >= (1 << Al))
+        pred = (1 << Al) - 1;
+    return (int16_t)(num >= 0 ? pred : -pred);
+}
+
+static void smooth_component(jdec *d, int ci, uint8_t *sp, int ps)
+{
+    dcomp *k = &d->c[ci];
+    const uint16_t *qt = k->qt;
+    const int64_t Q00 = qt[0], Q01 = qt[1], Q10 = qt[8], Q20 = qt[16],
+                  Q11 = qt[9], Q02 = qt[2], Q03 = qt[3], Q12 = qt[10],
+                  Q21 = qt[17], Q30 = qt[24];
+    int now[10], before[10];                  /* the two latches */
+    for (int i = 0; i < 10; i++) {
+        now[i] = k->coef_bits[i];
+        before[i] = d->scan_number > 1 ? k->prev_bits[i] : -1;
+    }
+    const int v = k->v, total = d->mcuy;
+    for (int by = 0; by < k->bh; by++)        /* padding rows, plainly */
+        for (int bx = 0; bx < k->bw; bx++)
+            idct_block(block_at(k, bx, by), qt,
+                       sp + (size_t)by * 8 * ps + bx * 8, ps);
+    for (int r = 0; r < total; r++) {
+        int rows = v;
+        if (r == total - 1 && k->hib % v)
+            rows = k->hib % v;
+        const int *bits = r > d->last_good ? before : now;
+        int change_dc = 1;
+        for (int i = 1; i < 10; i++)
+            change_dc &= bits[i] == -1;
+        for (int br = 0; br < rows; br++) {
+            /* the neighbour rows as libjpeg picks them: by block row
+             * within the iMCU row, or by iMCU row */
+            const int by = r * v + br, last_r = total - 1;
+            const int16_t *cu = block_at(k, 0, by);
+            const int16_t *pv = br > 0 || r > 0 ? block_at(k, 0, by - 1) : cu;
+            const int16_t *pp = br > 1 || r > 1 ? block_at(k, 0, by - 2) : pv;
+            const int16_t *nx = br < rows - 1 || r < last_r
+                ? block_at(k, 0, by + 1) : cu;
+            const int16_t *nn = br < rows - 2 || r + 1 < last_r
+                ? block_at(k, 0, by + 2) : nx;
+            int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10,
+                DC11, DC12, DC13, DC14, DC15, DC16, DC17, DC18, DC19, DC20,
+                DC21, DC22, DC23, DC24, DC25;
+            DC01 = DC02 = DC03 = DC04 = DC05 = pp[0];
+            DC06 = DC07 = DC08 = DC09 = DC10 = pv[0];
+            DC11 = DC12 = DC13 = DC14 = DC15 = cu[0];
+            DC16 = DC17 = DC18 = DC19 = DC20 = nx[0];
+            DC21 = DC22 = DC23 = DC24 = DC25 = nn[0];
+            const int last = k->wib - 1;
+            for (int bx = 0; bx <= last; bx++) {
+                const int o = bx * 64;
+                int16_t ws[64];
+                memcpy(ws, cu + o, sizeof(ws));
+                if (bx == 0 && bx < last) {
+                    DC04 = pp[o + 64];
+                    DC09 = pv[o + 64];
+                    DC14 = cu[o + 64];
+                    DC19 = nx[o + 64];
+                    DC24 = nn[o + 64];
+                }
+                if (bx + 1 < last) {
+                    DC05 = pp[o + 128];
+                    DC10 = pv[o + 128];
+                    DC15 = cu[o + 128];
+                    DC20 = nx[o + 128];
+                    DC25 = nn[o + 128];
+                }
+                if (bits[1] != 0 && ws[1] == 0)           /* AC01 */
+                    ws[1] = smooth_pred(Q00 * (change_dc ?
+                        (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07
+                         - 13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12
+                         - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17
+                         - 13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24
+                         + DC25) :
+                        (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+                        Q01, bits[1]);
+                if (bits[2] != 0 && ws[8] == 0)           /* AC10 */
+                    ws[8] = smooth_pred(Q00 * (change_dc ?
+                        (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05
+                         - DC06 + 13 * DC07 + 38 * DC08 + 13 * DC09 - DC10
+                         + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20
+                         + DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+                        (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+                        Q10, bits[2]);
+                if (bits[3] != 0 && ws[16] == 0)          /* AC20 */
+                    ws[16] = smooth_pred(Q00 * (change_dc ?
+                        (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12
+                         - 14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18
+                         + 2 * DC19 + DC23) :
+                        (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+                        Q20, bits[3]);
+                if (bits[4] != 0 && ws[9] == 0)           /* AC11 */
+                    ws[9] = smooth_pred(Q00 * (change_dc ?
+                        (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17
+                         + 9 * DC19 + DC21 - DC25) :
+                        (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20
+                         + DC22 - DC24 + DC04 - DC06 + 10 * DC07
+                         - 10 * DC09)),
+                        Q11, bits[4]);
+                if (bits[5] != 0 && ws[2] == 0)           /* AC02 */
+                    ws[2] = smooth_pred(Q00 * (change_dc ?
+                        (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12
+                         - 14 * DC13 + 7 * DC14 + DC15 + 2 * DC17
+                         - 5 * DC18 + 2 * DC19) :
+                        (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+                        Q02, bits[5]);
+                if (change_dc) {
+                    if (bits[6] != 0 && ws[3] == 0)       /* AC03 */
+                        ws[3] = smooth_pred(Q00 * (DC07 - DC09 + 2 * DC12
+                                                   - 2 * DC14 + DC17 - DC19),
+                                            Q03, bits[6]);
+                    if (bits[7] != 0 && ws[10] == 0)      /* AC12 */
+                        ws[10] = smooth_pred(Q00 * (DC07 - 3 * DC08 + DC09
+                                                    - DC17 + 3 * DC18 - DC19),
+                                             Q12, bits[7]);
+                    if (bits[8] != 0 && ws[17] == 0)      /* AC21 */
+                        ws[17] = smooth_pred(Q00 * (DC07 - DC09 - 3 * DC12
+                                                    + 3 * DC14 + DC17 - DC19),
+                                             Q21, bits[8]);
+                    if (bits[9] != 0 && ws[24] == 0)      /* AC30 */
+                        ws[24] = smooth_pred(Q00 * (DC07 + 2 * DC08 + DC09
+                                                    - DC17 - 2 * DC18 - DC19),
+                                             Q30, bits[9]);
+                    ws[0] = smooth_pred(Q00 *                  /* DC */
+                        (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05
+                         - 6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09
+                         - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13
+                         + 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17
+                         + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21
+                         - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25),
+                        Q00, 0);
+                }
+                idct_block(ws, qt, sp + (size_t)by * 8 * ps + bx * 8, ps);
+                DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+                DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+                DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+                DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+                DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
+            }
+        }
+    }
+}
+
+/* libjpeg's upsampler of a component (jdsample.c jinit_upsampler, with
+ * fancy upsampling on, as the library's default): full size, the fancy
+ * (triangle) filters where the ratio is 2 (plain replication for h2v1 and
+ * h2v2 when the component is at most 2 samples wide), and replication
+ * (int_upsample) for the other integral ratios; a ratio that is not an
+ * integer is refused (JERR_FRACT_SAMPLE_NOTIMPL). */
+static int upsampler(const jdec *d, const dcomp *k)
+{
+    const int hin = k->h, vin = k->v, hout = d->maxh, vout = d->maxv;
+    if (hin == hout && vin == vout)
+        return UP_FULL;
+    if (hin * 2 == hout && vin == vout)
+        return k->dw > 2 ? UP_H2V1 : UP_INT;
+    if (hin == hout && vin * 2 == vout)
+        return UP_H1V2;
+    if (hin * 2 == hout && vin * 2 == vout)
+        return k->dw > 2 ? UP_H2V2 : UP_INT;
+    if (hout % hin == 0 && vout % vin == 0)
+        return UP_INT;
+    return UP_FRACT;
+}
+
+/* component c's samples (block-smoothed when smooth) upsampled to the
+ * output size [H][W] */
+static int component_plane(jdec *d, int c, uint8_t *up, int smooth)
 {
     dcomp *k = &d->c[c];
     const int W = d->h.w, H = d->h.h;
@@ -740,18 +1294,27 @@ static int component_plane(jdec *d, int c, uint8_t *up)
     uint8_t *sp = (uint8_t *)malloc((size_t)ps * k->bh * 8);
     if (!sp)
         return MEJ_ERROR;
-    for (int by = 0; by < k->bh; by++)
-        for (int bx = 0; bx < k->bw; bx++)
-            idct_block(block_at(k, bx, by), k->qt,
-                       sp + (size_t)by * 8 * ps + bx * 8, ps);
+    if (smooth)
+        smooth_component(d, c, sp, ps);
+    else
+        for (int by = 0; by < k->bh; by++)
+            for (int bx = 0; bx < k->bw; bx++)
+                idct_block(block_at(k, bx, by), k->qt,
+                           sp + (size_t)by * 8 * ps + bx * 8, ps);
     const int rh = d->maxh / k->h, rv = d->maxv / k->v;
     const int dw = k->dw, dh = k->dh;
+    const int method = upsampler(d, k);
     for (int y = 0; y < H; y++) {
         uint8_t *o = up + (size_t)y * W;
         const int iy = y / rv;
         const uint8_t *r0 = sp + (size_t)iy * ps;
-        if (rh == 1 && rv == 1) {
+        if (method == UP_FULL) {
             memcpy(o, r0, (size_t)W);
+            continue;
+        }
+        if (method == UP_INT) {       /* replication by rh x rv */
+            for (int x = 0; x < W; x++)
+                o[x] = r0[x / rh];
             continue;
         }
         /* the context row: above for even output rows, below for odd,
@@ -759,14 +1322,11 @@ static int component_plane(jdec *d, int c, uint8_t *up)
         int ny = (y & 1) ? iy + 1 : iy - 1;
         ny = ny < 0 ? 0 : ny > dh - 1 ? dh - 1 : ny;
         const uint8_t *r1 = sp + (size_t)ny * ps;
-        if (rh == 1) {                /* h1v2 fancy */
+        if (method == UP_H1V2) {
             const int bias = (y & 1) ? 2 : 1;
             for (int x = 0; x < W; x++)
                 o[x] = (uint8_t)((r0[x] * 3 + r1[x] + bias) >> 2);
-        } else if (dw <= 2) {         /* h2v1 / h2v2 plain replication */
-            for (int x = 0; x < W; x++)
-                o[x] = r0[x >> 1];
-        } else if (rv == 1) {         /* h2v1 fancy */
+        } else if (method == UP_H2V1) {
             for (int x = 0; x < W; x++) {
                 int i = x >> 1;
                 if (x & 1) {
@@ -777,7 +1337,7 @@ static int component_plane(jdec *d, int c, uint8_t *up)
                     o[x] = (uint8_t)((r0[i] * 3 + r0[px] + 1) >> 2);
                 }
             }
-        } else {                      /* h2v2 fancy */
+        } else {                      /* UP_H2V2 */
             for (int x = 0; x < W; x++) {
                 int i = x >> 1;
                 int j = (x & 1) ? (i + 1 > dw - 1 ? dw - 1 : i + 1)
@@ -837,8 +1397,7 @@ static int decode_frame(const uint8_t *data, unsigned long size,
         rc = MEJ_ERROR;
     if (!rc)
         rc = decode_all(d);
-    if (!rc && needs_smoothing(d))
-        rc = MEJ_REFUSED;
+    const int smooth = !rc && smoothing_ok(d);
     const size_t npx = (size_t)d->h.w * d->h.h;
     if (!rc) {
         planes = (uint8_t *)malloc(npx * nc);
@@ -847,7 +1406,7 @@ static int decode_frame(const uint8_t *data, unsigned long size,
             rc = MEJ_ERROR;
     }
     for (int c = 0; !rc && c < nc; c++)
-        rc = component_plane(d, c, planes + npx * c);
+        rc = component_plane(d, c, planes + npx * c, smooth);
     if (!rc) {
         pthread_once(&ycc_once, ycc_init);
         for (size_t i = 0; i < npx; i++) {
@@ -902,13 +1461,16 @@ int mej_general_coefs(const unsigned char *data, unsigned long size,
                                   : !(h->comp[0].id == 0x52
                                       && h->comp[1].id == 0x47
                                       && h->comp[2].id == 0x42));
-        if (h->ncomp != 3 || !ycc || d->progressive
+        if (h->ncomp != 3 || !ycc || d->progressive || d->arith
             || h->comp[0].h != 2 || h->comp[0].v != 2
             || h->comp[1].h != 1 || h->comp[1].v != 1
             || h->comp[2].h != 1 || h->comp[2].v != 1)
             rc = 6;
         else if (h->ns != 3)
-            rc = MEJ_REFUSED;     /* sequential in several scans */
+            rc = MEJ_REFUSED;     /* sequential in several scans: the
+                                   * JAX reader's early stop can end in
+                                   * its first (Y) scan, leaving the
+                                   * chroma zero; decoded whole instead */
         else if (exp_w > 0 && (h->w != exp_w || h->h != exp_h))
             rc = 5;
     }
@@ -1040,7 +1602,7 @@ static void run_pix_job(mej_pix_job *job, int num_threads)
 
 /* Whole frames: out [n, max_h, max_w, 3] BGR (rows of width w packed at
  * the start of each frame slot), widths/heights [n], ok [n] (0 = read;
- * MEJ_REFUSED = a stream class this decoder does not read). */
+ * otherwise the frame was not decoded). */
 void mej_decode_full_batch(const unsigned char *const *datas,
                            const unsigned long *sizes, int n,
                            uint8_t *out, int max_w, int max_h,

@@ -181,9 +181,15 @@ int mej_src_start(mej_src *s, const uint8_t *data, unsigned long size,
     s->p = data;
     s->end = data + size;
     s->unread_marker = 0;
+    s->fake_d9 = 0;
     if (size < 2 || data[0] != 0xFF || data[1] != 0xD8)
         return MEJ_ERROR;         /* jdmarker first_marker: no SOI */
     s->p += 2;
+    for (int i = 0; i < 16; i++) {
+        h->arith_dc_L[i] = 0;
+        h->arith_dc_U[i] = 1;
+        h->arith_ac_K[i] = 5;
+    }
     return 0;
 }
 
@@ -310,6 +316,30 @@ static int mej_get_dqt(mej_hdr *h, const uint8_t *q, const uint8_t *qend)
     return length != 0 ? MEJ_ERROR : 0;
 }
 
+/* jdmarker.c get_dac: (index, value) pairs; index < 16 sets a DC
+ * table's L (low nibble) and U (high nibble), L <= U; 16..31 an AC
+ * table's K */
+static int mej_get_dac(mej_hdr *h, const uint8_t *q, const uint8_t *qend)
+{
+    long length = qend - q;
+    if (length & 1)
+        return MEJ_ERROR;         /* JERR_BAD_LENGTH */
+    for (; length > 0; length -= 2, q += 2) {
+        int index = q[0], val = q[1];
+        if (index >= 32)
+            return MEJ_ERROR;     /* JERR_DAC_INDEX */
+        if (index >= 16) {
+            h->arith_ac_K[index - 16] = (uint8_t)val;
+        } else {
+            h->arith_dc_L[index] = (uint8_t)(val & 0x0F);
+            h->arith_dc_U[index] = (uint8_t)(val >> 4);
+            if (h->arith_dc_L[index] > h->arith_dc_U[index])
+                return MEJ_ERROR; /* JERR_DAC_VALUE */
+        }
+    }
+    return 0;
+}
+
 static int mej_get_sos(mej_hdr *h, const uint8_t *q, const uint8_t *qend,
                        int len)
 {
@@ -342,8 +372,24 @@ static int mej_get_sos(mej_hdr *h, const uint8_t *q, const uint8_t *qend,
     return 0;
 }
 
+/* A segment [*q, *qend) cut by the end of the data: libjpeg reads the
+ * memory source's fake EOI, FF D9 again and again, as the rest of its
+ * body (and then meets the EOI). The body is rebuilt so in buf. */
+static void cut_segment(mej_src *s, const uint8_t **q, const uint8_t **qend,
+                        uint8_t *buf)
+{
+    long have = s->end - *q, body = *qend - *q;
+    for (long i = 0; i < body; i++)
+        buf[i] = i < have ? (*q)[i] : (i - have) & 1 ? 0xD9 : 0xFF;
+    *q = buf;
+    *qend = buf + body;
+    s->p = s->end;
+    s->fake_d9 = (int)((body - have) & 1);
+}
+
 int mej_read_markers(mej_src *s, mej_hdr *h)
 {
+    static __thread uint8_t cut_seg[65535];
     for (;;) {
         if (s->unread_marker == 0)
             mej_next_marker(s);
@@ -353,14 +399,13 @@ int mej_read_markers(mej_src *s, mej_hdr *h)
         int len, rc = 0;
         switch (m) {
         case 0xC0: case 0xC1: case 0xC2:          /* SOF0/1/2 */
+        case 0xC9: case 0xCA:                      /* SOF9/10: arithmetic */
             len = mej_segment(s, &q, &qend);
             if (len < 0 || qend > s->end)
                 return MEJ_ERROR;
             rc = mej_get_sof(h, q, qend, len, m);
             s->p = qend;
             break;
-        case 0xC9: case 0xCA:                      /* arithmetic coding */
-            return MEJ_REFUSED;
         case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC8:
         case 0xCB: case 0xCD: case 0xCE: case 0xCF:
             return MEJ_ERROR;                      /* JERR_SOF_UNSUPPORTED */
@@ -370,20 +415,33 @@ int mej_read_markers(mej_src *s, mej_hdr *h)
             return MEJ_AT_EOI;
         case 0xDA:                                 /* SOS */
             len = mej_segment(s, &q, &qend);
-            if (len < 0 || qend > s->end)
+            if (len < 0)
                 return MEJ_ERROR;
+            if (len >= 2 && qend > s->end) {
+                cut_segment(s, &q, &qend, cut_seg);
+            } else {
+                s->p = qend;
+            }
             rc = mej_get_sos(h, q, qend, len);
-            s->p = qend;
             if (rc)
                 return rc;
             return MEJ_AT_SOS;
         case 0xC4:                                 /* DHT */
         case 0xDB:                                 /* DQT */
         case 0xDD:                                 /* DRI */
+        case 0xCC:                                 /* DAC */
             len = mej_segment(s, &q, &qend);
-            if (len < 2 || qend > s->end)
+            if (len < 2)
                 return MEJ_ERROR;
-            if (m == 0xC4)
+            if (qend > s->end) {
+                cut_segment(s, &q, &qend, cut_seg);
+            } else {
+                s->p = qend;
+            }
+            if (m == 0xCC) {
+                rc = mej_get_dac(h, q, qend);
+                h->odd_markers = 1;
+            } else if (m == 0xC4)
                 rc = mej_get_dht(h, q, qend);
             else if (m == 0xDB)
                 rc = mej_get_dqt(h, q, qend);
@@ -391,7 +449,6 @@ int mej_read_markers(mej_src *s, mej_hdr *h)
                 rc = MEJ_ERROR;                    /* JERR_BAD_LENGTH */
             else
                 h->dri = (q[0] << 8) | q[1];
-            s->p = qend;
             break;
         case 0xD0: case 0xD1: case 0xD2: case 0xD3:
         case 0xD4: case 0xD5: case 0xD6: case 0xD7:
@@ -399,8 +456,8 @@ int mej_read_markers(mej_src *s, mej_hdr *h)
             h->odd_markers = 1;
             break;
         default:
-            if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC
-                || m == 0xCC) {                    /* APPn, COM, DNL, DAC */
+            if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE
+                || m == 0xDC) {                    /* APPn, COM, DNL */
                 len = mej_segment(s, &q, &qend);
                 if (len < 0) {
                     s->p = s->end;
@@ -417,7 +474,7 @@ int mej_read_markers(mej_src *s, mej_hdr *h)
                     h->saw_adobe = 1;              /* "Adobe" */
                     h->adobe_transform = q[11];
                 }
-                if (m == 0xDC || m == 0xCC)
+                if (m == 0xDC)
                     h->odd_markers = 1;
                 s->p = qend > s->end ? s->end : qend;
                 break;

@@ -49,6 +49,9 @@ void mej_htbl_new_generation(void);
 typedef struct {
     const uint8_t *p, *end;   /* next unread byte */
     int unread_marker;        /* a marker read but not yet processed */
+    int fake_d9;              /* past the end the memory source supplies
+                               * FF D9 FF D9 ...; 1 when a cut segment
+                               * took an FF of it, so D9 comes next */
 } mej_src;
 
 typedef struct {
@@ -65,7 +68,7 @@ typedef struct {
 typedef struct {
     /* frame */
     int saw_sof;
-    int sof;                  /* SOF marker code (0xC0, 0xC1, 0xC2, ...) */
+    int sof;                  /* SOF marker code (0xC0-0xC2, 0xC9, 0xCA) */
     int precision, w, h, ncomp;
     mej_comp comp[MEJ_MAX_COMPS];
     /* tables, as last defined */
@@ -74,6 +77,9 @@ typedef struct {
     int q16;                  /* a 16-bit (Pq = 1) DQT was read */
     mej_dht dht[2][4];        /* [class: 0 DC, 1 AC][id] */
     int dri;
+    /* arithmetic conditioning (DAC), per table; SOI sets the defaults
+     * L = 0, U = 1, K = 5 (jdmarker.c get_soi) */
+    uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
     int saw_jfif, saw_adobe, adobe_transform;
     int odd_markers;          /* RSTn, TEM, DNL or DAC met before an SOS */
     /* the scan of the last SOS */
@@ -85,7 +91,11 @@ typedef struct {
 
 enum {
     MEJ_ERROR = -1,           /* libjpeg refuses the stream too */
-    MEJ_REFUSED = -2,         /* libjpeg reads it; these readers do not */
+    MEJ_REFUSED = -2,         /* libjpeg reads it; a reader does not: the
+                               * coefficient reader takes one interleaved
+                               * sequential 4:2:0 scan only (the decoder
+                               * reads every class libjpeg's 8-bit BGR
+                               * decode reads) */
     MEJ_AT_SOS = 1,
     MEJ_AT_EOI = 2
 };

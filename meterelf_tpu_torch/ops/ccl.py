@@ -17,7 +17,8 @@ compile-time flag for the key) runs one window per CTA and writes the key
 once.
 
 ``analyze_batch`` is components.analyze_batch on this branch: K6, then
-components.finalize.
+components.finalize (the quad branch under METERELF_QUAD_STATS != fused
+runs it too).
 """
 from __future__ import annotations
 
@@ -81,11 +82,14 @@ propagate.launches = 0  # type: ignore[attr-defined]
 
 def analyze_batch(bits: torch.Tensor,
                   static_bbox: Optional[components.StatsBox] = None,
-                  caps: Optional[Sequence[int]] = None
+                  caps: Optional[Sequence[int]] = None, stats: str = "sort"
                   ) -> components.ComponentResult:
     """components.analyze_batch(impl="pallas") on K2's window bits [K, 64,
-    64]: K6, then the largest-component selection and the needle region
-    (components.finalize)."""
+    64]: K6, then the largest-component selection under ``stats`` and the
+    needle region (components.finalize). On the quad branch under
+    METERELF_QUAD_STATS != fused the JAX graph runs
+    propagate_quads(pack_closed=False), which is K6's function, and then
+    the same _finalize."""
     okey, conv = propagate(bits, caps)
     return components.finalize(okey, (bits & 1) != 0, (bits & 4) != 0,
-                               conv, static_bbox)
+                               conv, static_bbox, stats)

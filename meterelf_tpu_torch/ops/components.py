@@ -18,17 +18,27 @@ the same:
   so that is the state and the flag of running every pass.
 
 ``propagate`` is the plain version of K3 and, with pack_closed=False,
-of K6 (ops/ccl.py); ``cell_contrib`` feeds the plain version of K4
-(ops/stats.py).
+of K6 (ops/ccl.py).
 
-``finalize`` ports ``_finalize`` with ``_stats_sort``
-(components.py:408-499, :553-595), the stage after K6 on the
-general-geometry branch: the largest top-level component per window
-(through one sort of packed keys, over the static per-dial stats box
-when there is one) and the reference's needle region. The JAX package
-runs it in XLA; here it is torch. JAX sorts the keys as u16 when they
-fit; the port sorts the same non-negative keys as i32, which orders them
-alike.
+``finalize`` ports ``_finalize`` (components.py:408-499), the stage after
+K6 on the general-geometry branch and on the quad branch under
+METERELF_QUAD_STATS != fused: the largest top-level component per window
+and the reference's needle region. ``stats`` names the selection:
+
+- "sort" and "hist" (the JAX package's ``_stats_sort`` and
+  ``_stats_hist``, :553-595 and :502-550) are two XLA formulations of one
+  function, the selection that K7 computes: the same key area2*4096 +
+  owner over owners with a boundary pixel and the same tie-break
+  (tests/test_ops.py holds hist_pallas equal to sort). Both run the
+  port's sort here, in torch, over the static per-dial stats box when
+  there is one. JAX sorts the keys as u16 when they fit; the port sorts
+  the same non-negative keys as i32, which orders them alike.
+- "hist_pallas" runs K7 (ops/stats.py ``stats_select``, the port of
+  pallas_stats.stats_select) over the whole window, with no box remap,
+  as :422-444 does.
+
+``cell_contrib``, the marching-squares cell contributions, lives in
+ops/stats.py beside K4 and K7, which read it.
 """
 from __future__ import annotations
 
@@ -37,8 +47,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-W = 64
-N = W * W
+from .stats import N, W, cell_contrib, stats_select
 
 # pass caps (components.K_LABEL_HYBRID, K_OUTSIDE_HYBRID, K_FILL)
 K_LABEL = 10
@@ -182,30 +191,6 @@ def propagate(bits: torch.Tensor, caps: Optional[Sequence[int]] = None,
     return okey, lab_eq & out_eq & fill_eq
 
 
-def cell_contrib(owner: torch.Tensor) -> torch.Tensor:
-    """Per-pixel marching-squares area contributions (2x scale): each
-    2x2 cell whose corner minimum m is an owner (< 4096) adds 2 when all
-    four corners equal m and 1 when three do, to its first corner equal
-    to m in raster order. owner: [..., 64, 64] i32 -> i32 same shape."""
-    o00 = owner[..., :-1, :-1]
-    o01 = owner[..., :-1, 1:]
-    o10 = owner[..., 1:, :-1]
-    o11 = owner[..., 1:, 1:]
-    m = torch.minimum(torch.minimum(o00, o01), torch.minimum(o10, o11))
-    e00, e01, e10, e11 = (o00 == m), (o01 == m), (o10 == m), (o11 == m)
-    i32 = torch.int32
-    k = e00.to(i32) + e01.to(i32) + e10.to(i32) + e11.to(i32)
-    has = m < N
-    cls = torch.where(has & (k == 4), 2, torch.where(has & (k == 3), 1, 0))
-    cls = cls.to(i32)
-    a01 = e01 & ~e00
-    a10 = e10 & ~e00 & ~e01
-    a11 = e11 & ~e00 & ~e01 & ~e10
-    return (F.pad(cls * e00, (0, 1, 0, 1)) + F.pad(cls * a01, (1, 0, 0, 1))
-            + F.pad(cls * a10, (0, 1, 1, 0))
-            + F.pad(cls * a11, (1, 0, 1, 0)))
-
-
 class ComponentResult(NamedTuple):
     has_any: torch.Tensor        # [K] bool: masked window nonempty
     needle_region: torch.Tensor  # [K, 64, 64] bool: the reference's mask
@@ -244,20 +229,29 @@ def _stats_sort(ol: torch.Tensor, bbit: torch.Tensor, contrib: torch.Tensor,
 
 
 def finalize(okey: torch.Tensor, masked: torch.Tensor, closed: torch.Tensor,
-             converged: torch.Tensor, static_bbox: Optional[StatsBox] = None
-             ) -> ComponentResult:
+             converged: torch.Tensor, static_bbox: Optional[StatsBox] = None,
+             stats: str = "sort") -> ComponentResult:
     """okey [K, 64, 64] i32 (owner*4 + masked*2 + boundary), masked and
     closed [K, 64, 64] bool, converged [K] -> ComponentResult
-    (components._finalize, stats="sort"). With ``static_bbox`` ((ox, oy)
-    per dial, SB) the stats cover each dial's SB x SB box (K a multiple
-    of the dial count) and labels remap to box-local indices, a monotone
-    map that keeps the selection and its tie-break."""
+    (components._finalize). ``stats`` is "sort", "hist" or "hist_pallas"
+    (module docstring). Under sort and hist, with ``static_bbox`` ((ox,
+    oy) per dial, SB) the stats cover each dial's SB x SB box (K a
+    multiple of the dial count) and labels remap to box-local indices, a
+    monotone map that keeps the selection and its tie-break."""
+    if stats not in ("sort", "hist", "hist_pallas"):
+        raise ValueError(f"finalize: unknown stats {stats!r}")
     K = okey.shape[0]
     dev = okey.device
     owner = okey >> 2                          # N at non-support pixels
     contrib = cell_contrib(owner)
     bbit = okey & 1
-    if static_bbox is not None:
+    if stats == "hist_pallas":
+        keymax = stats_select(okey, contrib)   # K7
+        sel_valid = keymax >= 0
+        area2_sel = keymax >> 12
+        sel = torch.where(sel_valid, keymax & (N - 1),
+                          torch.full_like(keymax, N))
+    elif static_bbox is not None:
         origins, sb = static_bbox
         D = len(origins)
         sent = sb * sb

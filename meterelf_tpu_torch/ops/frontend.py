@@ -19,6 +19,13 @@ is produced: the windows stage reads the crop at (mx, my) directly.
 ``frontend`` is the wrapper: on a CPU tensor it runs ``frontend_plain``;
 on a CUDA tensor it launches the CUDA kernel (csrc/frontend.cu) or
 raises.
+
+K5 ``frontend_windows`` ports pallas_frontend.frontend_windows_pallas,
+the JAX decode's METERELF_FRONTEND=merged variant of the quad branch: K1
+and then, in the same CUDA block, K2's 4 dial windows at the located
+offset (csrc/frontend.cu with csrc/window_bits.cuh, K2's body). Its plain
+version is ``frontend_plain`` followed by ``windows.windows_plain``, the
+same function; it takes exactly 4 dials, as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 from .. import _build
 from .color import lightness_from_planes, unpack_planes
 from .launch import check_cuda, raise_on_error, stream_of
+from .windows import WIN, Geom, host_geom, windows_plain
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
@@ -189,24 +197,33 @@ def locate(scores: torch.Tensor
             (idx % ow).to(torch.int32), (idx // ow).to(torch.int32))
 
 
+def _check_kernel_args(name: str, packed: torch.Tensor,
+                       template_u8: torch.Tensor
+                       ) -> Tuple[int, int, int, int, int]:
+    """The checks K1 and K5 share on CUDA tensors: dtypes, a template that
+    fits the crop, and K1's shared memory within a block's limit -> (B,
+    H, W, th, tw)."""
+    check_cuda(name, packed, torch.int32, 3)
+    check_cuda(name, template_u8, torch.uint8, 2, like=packed)
+    B, H, W = packed.shape
+    th, tw = template_u8.shape
+    if not (1 <= th <= H and 1 <= tw <= W):
+        raise ValueError(f"template {(th, tw)} does not fit crop {(H, W)}")
+    smem = smem_bytes(H, W, th, tw)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"crop {(H, W)} with template {(th, tw)} needs {smem} B of "
+            f"shared memory, above the {SMEM_LIMIT} B a block may use")
+    return B, H, W, th, tw
+
+
 def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
              c1: float, c0: float
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 wrapper -> (max_val f32 [B], mx i32 [B], my i32 [B])."""
     if packed.device.type == "cpu":
         return frontend_plain(packed, template_u8, c1, c0)
-    check_cuda("frontend", packed, torch.int32, 3)
-    check_cuda("frontend", template_u8, torch.uint8, 2, like=packed)
-    B, H, W = packed.shape
-    th, tw = template_u8.shape
-    if not (1 <= th <= H and 1 <= tw <= W):
-        raise ValueError(f"template {(th, tw)} does not fit crop {(H, W)}")
-    lib = _build.library()
-    smem = smem_bytes(H, W, th, tw)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"crop {(H, W)} with template {(th, tw)} needs {smem} B of "
-            f"shared memory, above the {SMEM_LIMIT} B a block may use")
+    B, H, W, th, tw = _check_kernel_args("frontend", packed, template_u8)
     dev = packed.device
     max_val = torch.empty(B, dtype=torch.float32, device=dev)
     mx = torch.empty(B, dtype=torch.int32, device=dev)
@@ -214,7 +231,7 @@ def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
     if B == 0:
         return max_val, mx, my
     with torch.cuda.device(dev):
-        rc = lib.meterelf_frontend(
+        rc = _build.library().meterelf_frontend(
             packed.data_ptr(), B, H, W, template_u8.data_ptr(), th, tw,
             c1, c0, max_val.data_ptr(), mx.data_ptr(), my.data_ptr(),
             stream_of(dev))
@@ -224,3 +241,55 @@ def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
 
 
 frontend.launches = 0  # type: ignore[attr-defined]
+
+
+def frontend_windows_plain(packed: torch.Tensor, template_u8: torch.Tensor,
+                           c1: float, c0: float, geom: Geom,
+                           disk: torch.Tensor, hue_shift: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """Plain K5: K1's then K2's plain versions -> (max_val f32 [B], mx
+    i32 [B], my i32 [B], bits i32 [B, 4, 64, 64])."""
+    max_val, mx, my = frontend_plain(packed, template_u8, c1, c0)
+    return max_val, mx, my, windows_plain(packed, mx, my, geom, disk,
+                                          hue_shift)
+
+
+def frontend_windows(packed: torch.Tensor, template_u8: torch.Tensor,
+                     c1: float, c0: float, geom: Geom, disk: torch.Tensor,
+                     hue_shift: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """K5 wrapper -> (max_val f32 [B], mx i32 [B], my i32 [B], bits i32
+    [B, 4, 64, 64]); ``geom``, ``disk`` and ``hue_shift`` as
+    windows.windows takes them, for exactly 4 dials."""
+    if len(geom) != 4:
+        raise ValueError(f"frontend_windows takes 4 dials, got {len(geom)}")
+    if packed.device.type == "cpu":
+        return frontend_windows_plain(packed, template_u8, c1, c0, geom,
+                                      disk, hue_shift)
+    B, H, W, th, tw = _check_kernel_args("frontend_windows", packed,
+                                         template_u8)
+    check_cuda("frontend_windows", disk, torch.uint8, 3, like=packed)
+    if tuple(disk.shape) != (4, WIN, WIN):
+        raise ValueError(f"disk shape {tuple(disk.shape)} != {(4, WIN, WIN)}")
+    geom_arg = host_geom(geom)
+    dev = packed.device
+    max_val = torch.empty(B, dtype=torch.float32, device=dev)
+    mx = torch.empty(B, dtype=torch.int32, device=dev)
+    my = torch.empty(B, dtype=torch.int32, device=dev)
+    bits = torch.empty((B, 4, WIN, WIN), dtype=torch.int32, device=dev)
+    if B == 0:
+        return max_val, mx, my, bits
+    with torch.cuda.device(dev):
+        rc = _build.library().meterelf_frontend_windows(
+            packed.data_ptr(), B, H, W, template_u8.data_ptr(), th, tw, c1,
+            c0, geom_arg, disk.data_ptr(), int(hue_shift),
+            max_val.data_ptr(), mx.data_ptr(), my.data_ptr(),
+            bits.data_ptr(), stream_of(dev))
+    raise_on_error("frontend_windows", rc)
+    frontend_windows.launches += 1
+    return max_val, mx, my, bits
+
+
+frontend_windows.launches = 0  # type: ignore[attr-defined]

@@ -12,6 +12,15 @@ its argmax.
   within a relative tolerance, not bit for bit (tests state it).
   ``match_scores_plain`` computes the same map in torch, bit-equal to the
   kernel.
+- ``match_corr`` (K9) ports meterelf_tpu/ops/pallas_match.py
+  match_scores_pallas, the v1 scorer (only the JAX package's tests and
+  experiments call it): K8's kernel without the score, corr = sum L*T
+  exact in i32, written as f32 [B, oh, ow]. ``match_scores_v1`` adds
+  what the JAX function does outside its kernel: an f32 integral-image
+  box sum (exact: every partial sum is an integer below 2^24) and corr -
+  tmean * box. It equals K8's map bit for bit (the JAX package's own
+  contract, tests/test_ops.py test_fused_matcher_matches_v1_plus_boxsum).
+  ``match_corr_plain`` is K9's plain version.
 - ``fits`` is pallas_match2.fits, the gate of the JAX decode: geometries
   past it take ``scores_matmul``.
 - ``scores_matmul`` ports template.match_template_scores_matmul, the
@@ -24,6 +33,7 @@ The first-max argmax after either scorer is frontend.locate
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .frontend import SMEM_LIMIT, corr_box8, smem_bytes
@@ -92,6 +102,65 @@ def match_scores(lightness: torch.Tensor, template_u8: torch.Tensor,
 
 
 match_scores.launches = 0  # type: ignore[attr-defined]
+
+
+def match_corr_plain(lightness: torch.Tensor, template_u8: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain K9 -> corr = sum L*T as f32 [B, oh, ow] (exact integers,
+    rounded to f32 once)."""
+    lp = lightness.to(torch.int32) - 128
+    corr8, boxp = corr_box8(lp, template_u8.to(torch.int32) - 128)
+    tsum = int(template_u8.to(torch.int64).sum())
+    return (corr8.to(torch.int64) + 128 * boxp + 128 * tsum).to(torch.float32)
+
+
+def match_corr(lightness: torch.Tensor, template_u8: torch.Tensor
+               ) -> torch.Tensor:
+    """K9 wrapper -> corr f32 [B, oh, ow]."""
+    if lightness.device.type == "cpu":
+        return match_corr_plain(lightness, template_u8)
+    check_cuda("match_corr", lightness, torch.float32, 3)
+    check_cuda("match_corr", template_u8, torch.uint8, 2, like=lightness)
+    B, H, W = lightness.shape
+    th, tw = template_u8.shape
+    if not fits(H, W, th, tw) or smem_bytes(H, W, th, tw) > SMEM_LIMIT:
+        raise ValueError(f"match_corr kernel: map {(H, W)} with template "
+                         f"{(th, tw)} is outside its gate")
+    dev = lightness.device
+    corr = torch.empty((B, H - th + 1, W - tw + 1), dtype=torch.float32,
+                       device=dev)
+    if B == 0:
+        return corr
+    tsum = int(template_u8.to(torch.int64).sum())
+    with torch.cuda.device(dev):
+        rc = _build.library().meterelf_match_corr(
+            lightness.data_ptr(), B, H, W, template_u8.data_ptr(), th, tw,
+            tsum, corr.data_ptr(), stream_of(dev))
+    raise_on_error("match_corr", rc)
+    match_corr.launches += 1
+    return corr
+
+
+match_corr.launches = 0  # type: ignore[attr-defined]
+
+
+def match_scores_v1(lightness: torch.Tensor, template_u8: torch.Tensor,
+                    tmean: float) -> torch.Tensor:
+    """pallas_match.match_scores_pallas: K9's corr, then an f32
+    integral-image box sum and corr - tmean * box -> scores f32 [B, oh,
+    ow]. Specialised to the meterelf shape family, as the TPU function
+    asserts."""
+    B, H, W = lightness.shape
+    th, tw = template_u8.shape
+    if (H, W, th, tw) != (250, 250, 119, 188):
+        raise ValueError("the v1 matcher is specialised to the meterelf "
+                         f"shape family, got {(H, W, th, tw)}")
+    corr = match_corr(lightness, template_u8)
+    cs = F.pad(lightness.to(torch.float32).cumsum(1).cumsum(2), (1, 0, 1, 0))
+    box = (cs[:, th:, tw:] - cs[:, :-th, tw:]
+           - cs[:, th:, :-tw] + cs[:, :-th, :-tw])
+    tm = torch.tensor(tmean, dtype=torch.float32, device=lightness.device)
+    return corr - tm * box
 
 
 def scores_matmul(lightness: torch.Tensor, template_u8: torch.Tensor,

@@ -1,26 +1,62 @@
-"""K4 `stats`: largest-contour selection per window.
+"""K4 `stats` and K7 `stats_select`: largest-contour selection per window.
 
 Port of meterelf_tpu/ops/pallas_stats.py stats_select_fused. From okey3
 (owner*8 + closed*4 + masked*2 + boundary, owner 4096 off the support):
 per owner the boundary-pixel count (> 0 marks a top-level component,
 the contours RETR_EXTERNAL lists) and the doubled contourArea (the
-marching-squares cell contributions of components.cell_contrib);
+marching-squares cell contributions of ``cell_contrib``);
 keymax = max(area2*4096 + owner) over those owners, -1 when none
 (larger owner on area ties, Python's stable sorted()[-1]); has_any =
 any masked pixel. The TPU kernel's one-hot matmuls and row_spans
 restriction are matrix-unit devices and are not carried over: the CUDA
 kernel (csrc/stats.cu) builds both histograms with shared-memory
 atomics.
+
+K7 ``stats_select`` ports pallas_stats.stats_select, which the JAX
+decode runs under METERELF_QUAD_STATS=hist_pallas (components._finalize):
+okey (owner*4 + masked*2 + boundary, K6's key) and contrib, the cell
+contributions computed outside the kernel as the JAX graph does, in; per
+owner the boundary count and area2 = sum (contrib & 3), both binned under
+each pixel's own owner (owner 4096 drops out); keymax as K4's. The CUDA
+kernel is K4's with a template flag (csrc/stats.cu), so the two
+histogram bodies cannot drift.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
-from .components import N, W, cell_contrib
 from .launch import check_cuda, raise_on_error, stream_of
+
+W = 64
+N = W * W
+
+
+def cell_contrib(owner: torch.Tensor) -> torch.Tensor:
+    """Per-pixel marching-squares area contributions (2x scale): each
+    2x2 cell whose corner minimum m is an owner (< 4096) adds 2 when all
+    four corners equal m and 1 when three do, to its first corner equal
+    to m in raster order. owner: [..., 64, 64] i32 -> i32 same shape."""
+    o00 = owner[..., :-1, :-1]
+    o01 = owner[..., :-1, 1:]
+    o10 = owner[..., 1:, :-1]
+    o11 = owner[..., 1:, 1:]
+    m = torch.minimum(torch.minimum(o00, o01), torch.minimum(o10, o11))
+    e00, e01, e10, e11 = (o00 == m), (o01 == m), (o10 == m), (o11 == m)
+    i32 = torch.int32
+    k = e00.to(i32) + e01.to(i32) + e10.to(i32) + e11.to(i32)
+    has = m < N
+    cls = torch.where(has & (k == 4), 2, torch.where(has & (k == 3), 1, 0))
+    cls = cls.to(i32)
+    a01 = e01 & ~e00
+    a10 = e10 & ~e00 & ~e01
+    a11 = e11 & ~e00 & ~e01 & ~e10
+    return (F.pad(cls * e00, (0, 1, 0, 1)) + F.pad(cls * a01, (1, 0, 0, 1))
+            + F.pad(cls * a10, (0, 1, 1, 0))
+            + F.pad(cls * a11, (1, 0, 1, 0)))
 
 
 def stats_plain(okey3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -63,3 +99,47 @@ def stats(okey3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 stats.launches = 0  # type: ignore[attr-defined]
+
+
+def stats_select_plain(okey: torch.Tensor, contrib: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain K7: okey and contrib [K, 64, 64] or [K, 4096] i32 -> keymax
+    i32 [K]."""
+    K = okey.shape[0]
+    ok = okey.reshape(K, N)
+    # owners outside [0, 4096) -> an extra bin, dropped
+    own = torch.where((ok >= 0) & (ok < 4 * N), ok >> 2, N).long()
+    zeros = torch.zeros((K, N + 1), dtype=torch.int32, device=ok.device)
+    bcount = zeros.scatter_add(1, own, ok & 1)
+    area2 = zeros.scatter_add(1, own,
+                            (contrib.reshape(K, N) & 3).to(torch.int32))
+    cell = torch.arange(N, dtype=torch.int32, device=ok.device)
+    key = torch.where(bcount[:, :N] > 0, area2[:, :N] * N + cell, -1)
+    return key.amax(dim=1).to(torch.int32)
+
+
+def stats_select(okey: torch.Tensor, contrib: torch.Tensor) -> torch.Tensor:
+    """K7 wrapper -> keymax i32 [K]."""
+    if okey.device.type == "cpu":
+        return stats_select_plain(okey, contrib)
+    check_cuda("stats_select", okey, torch.int32, okey.dim())
+    check_cuda("stats_select", contrib, torch.int32, contrib.dim(),
+               like=okey)
+    K = okey.shape[0]
+    if okey.numel() != K * N or contrib.numel() != K * N:
+        raise ValueError(f"stats_select kernel takes [K, {W}, {W}] okey and "
+                         f"contrib, got {tuple(okey.shape)} and "
+                         f"{tuple(contrib.shape)}")
+    keymax = torch.empty(K, dtype=torch.int32, device=okey.device)
+    if K == 0:
+        return keymax
+    with torch.cuda.device(okey.device):
+        rc = _build.library().meterelf_stats_select(
+            okey.data_ptr(), contrib.data_ptr(), K, keymax.data_ptr(),
+            stream_of(okey.device))
+    raise_on_error("stats_select", rc)
+    stats_select.launches += 1
+    return keymax
+
+
+stats_select.launches = 0  # type: ignore[attr-defined]

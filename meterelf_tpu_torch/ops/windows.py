@@ -49,6 +49,14 @@ def _sample_start(c: int) -> int:
     return min(max(s + WIN if s < 0 else s, 0), WIN - 5)
 
 
+def host_geom(geom: Geom) -> ctypes.c_void_p:
+    """``geom`` as the HOST int32 array [D, 7] that K2 and K5 take."""
+    flat = [int(v) for g in geom for v in g]
+    if len(flat) != 7 * len(geom):
+        raise ValueError("geom needs 7 ints per dial")
+    return ctypes.cast((ctypes.c_int32 * len(flat))(*flat), ctypes.c_void_p)
+
+
 def windows_plain(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
                   geom: Geom, disk: torch.Tensor, hue_shift: int
                   ) -> torch.Tensor:
@@ -103,10 +111,7 @@ def windows(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
         raise ValueError(f"disk shape {tuple(disk.shape)} != {(D, WIN, WIN)}")
     if mx.shape[0] != B or my.shape[0] != B:
         raise ValueError("mx/my must hold one offset per image")
-    flat = [int(v) for g in geom for v in g]
-    if len(flat) != 7 * D:
-        raise ValueError("geom needs 7 ints per dial")
-    host_geom = (ctypes.c_int32 * len(flat))(*flat)
+    geom_arg = host_geom(geom)
     bits = torch.empty((B, D, WIN, WIN), dtype=torch.int32,
                        device=packed.device)
     if B == 0:
@@ -114,8 +119,8 @@ def windows(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
     with torch.cuda.device(packed.device):
         rc = _build.library().meterelf_windows(
             packed.data_ptr(), B, H, W, mx.data_ptr(), my.data_ptr(),
-            ctypes.cast(host_geom, ctypes.c_void_p), D, disk.data_ptr(),
-            int(hue_shift), bits.data_ptr(), stream_of(packed.device))
+            geom_arg, D, disk.data_ptr(), int(hue_shift), bits.data_ptr(),
+            stream_of(packed.device))
     raise_on_error("windows", rc)
     windows.launches += 1
     return bits

@@ -26,12 +26,32 @@ Every branch ends in f64 angle statistics, the carry-corrected value
 CUDA device every kernel stage launches its CUDA kernel; on the CPU the
 same code runs each kernel's plain torch version.
 
+The quad branch takes the JAX decode's two variant knobs, read when the
+decoder is built (``MeterDecoder(frontend=, quad_stats=)``, else the
+environment, with the JAX package's names and defaults):
+
+- ``METERELF_FRONTEND``: ``split`` (default: K1, then K2) or ``merged``
+  (K5 frontend_windows, ops/frontend.py: both in one CUDA block);
+- ``METERELF_QUAD_STATS``: ``fused`` (default: K3 with the closed bit,
+  K4, angles from okey3) or ``hist_pallas``, ``sort``, ``hist`` (K6, the
+  JAX graph's propagate_quads(pack_closed=False), then
+  components.finalize with K7 for hist_pallas or the torch sort for sort
+  and hist, two XLA formulations of K7's selection; angles from the
+  needle region). A ``_interpret`` suffix, the JAX package's switch to
+  Pallas interpret mode, is accepted and means nothing here.
+
+The other branches read neither knob, as in JAX. ``METERELF_STATS_SLICED``,
+``METERELF_CCL_DEQUAD`` and ``METERELF_STATS_GW`` change only the TPU
+kernels' layouts and give the same results: they select nothing in the
+port.
+
 ``make_coef_decode_fn`` puts the JPEG back-half of the coefficient feed
 (ops/jpeg_tail.py: K10, or the plain IDCT and K11 on the block layout)
 and the fallback slots in front of the same decode.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,13 +64,28 @@ from ..ops.angles import assemble_value, read_dials, read_dials_region
 from ..ops.ccl import analyze_batch, ccl
 from ..ops.color import lightness_from_planes, unpack_planes
 from ..ops.components import RESCUE_CAPS, StatsBox
-from ..ops.frontend import frontend, frontend_ok, locate, score_constants
+from ..ops.frontend import (frontend, frontend_ok, frontend_windows, locate,
+                            score_constants)
 from ..ops.jpeg_tail import backhalf_blocks, backhalf_planes
 from ..ops.jpegdec import CoefWindow, coef_window
 from ..ops.stats import stats
 from ..ops.windows import windows
 
 W = 64
+FRONTENDS = ("split", "merged")
+QUAD_STATS = ("fused", "hist_pallas", "sort", "hist")
+
+
+def _variant(value: Optional[str], env: str, default: str,
+             choices: Tuple[str, ...]) -> str:
+    """A knob's value: the argument, else the environment variable, else
+    the JAX package's default; a ``_interpret`` suffix is dropped. An
+    unknown value raises."""
+    v = os.environ.get(env, default) if value is None else value
+    base = v[:-len("_interpret")] if v.endswith("_interpret") else v
+    if base not in choices:
+        raise ValueError(f"{env}={v!r}: expected one of {choices}")
+    return base
 
 
 class BatchResult(NamedTuple):
@@ -77,7 +112,15 @@ class MeterDecoder:
     without a GPU raises; nothing falls back to the CPU.
     """
 
-    def __init__(self, params: Params, *, device: Any = "cuda") -> None:
+    def __init__(self, params: Params, *, device: Any = "cuda",
+                 frontend: Optional[str] = None,
+                 quad_stats: Optional[str] = None) -> None:
+        # the quad branch's variants (module docstring); None reads the
+        # environment, as the JAX package does at import
+        self.frontend = _variant(frontend, "METERELF_FRONTEND", "split",
+                                 FRONTENDS)
+        self.quad_stats = _variant(quad_stats, "METERELF_QUAD_STATS",
+                                   "fused", QUAD_STATS)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -175,8 +218,8 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
                   static_bbox: Optional[StatsBox],
                   caps: Optional[Sequence[int]]) -> BatchResult:
     """decode.py _decode_batch: packed [B, H, W] i32 crops -> BatchResult
-    of device tensors, on the branch the static arguments and gates pick
-    (module docstring)."""
+    of device tensors, on the branch the static arguments and gates pick,
+    and on the quad branch the decoder's variant (module docstring)."""
     B = packed.shape[0]
     D = len(dec.geom)
     pa = dec.param_arrays
@@ -186,7 +229,12 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
                     and len(static_win_origin) == D)
     use_quad = use_frontend and D == 4 and static_centers is not None
 
-    if use_frontend:
+    bits = None
+    if use_quad and dec.frontend == "merged":
+        max_val, mx, my, bits = frontend_windows(
+            packed, pa.template_u8, dec.score_c1, dec.score_c0, dec.geom,
+            dec.disk, dec.hue_shift)
+    elif use_frontend:
         max_val, mx, my = frontend(packed, pa.template_u8, dec.score_c1,
                                    dec.score_c0)
     else:
@@ -197,14 +245,16 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
                  else match.scores_matmul)
         max_val, mx, my = locate(score(lightness, pa.template_u8,
                                        dec.tmean))
-    bits = windows(packed, mx, my, dec.geom, dec.disk, dec.hue_shift)
-    if use_quad:
+    if bits is None:
+        bits = windows(packed, mx, my, dec.geom, dec.disk, dec.hue_shift)
+    if use_quad and dec.quad_stats == "fused":
         okey3, conv = ccl(bits.reshape(B * D, W, W), caps)
         keymax, has_any = stats(okey3)
         positions, readable = read_dials(
             okey3.reshape(B, D, W * W), keymax.reshape(B, D), pa)
     else:
-        comp = analyze_batch(bits.reshape(B * D, W, W), static_bbox, caps)
+        comp = analyze_batch(bits.reshape(B * D, W, W), static_bbox, caps,
+                             dec.quad_stats if use_quad else "sort")
         has_any, conv = comp.has_any, comp.converged
         positions, readable = read_dials_region(
             comp.needle_region.reshape(B, D, W * W), pa)

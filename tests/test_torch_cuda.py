@@ -97,6 +97,72 @@ def test_propagate_and_match_kernels_equal_plain(case):
             frontend.smem_bytes(*shape)
 
 
+def test_variant_kernels_equal_plain(case):
+    """K5 against its plain version and against K1 then K2; K7 on K6's
+    okey against its plain version and K4's keymax on the same windows;
+    K9 against its plain version, and match_scores_v1 bitwise against
+    K8's map."""
+    dec, _, packed = case
+    tmpl = dec.param_arrays.template_u8
+    args = (packed, tmpl, dec.score_c1, dec.score_c0, dec.geom, dec.disk,
+            dec.hue_shift)
+    n5 = frontend.frontend_windows.launches
+    got = frontend.frontend_windows(*args)
+    ref = frontend.frontend_windows_plain(*args)
+    mv, mx, my = frontend.frontend(*args[:4])
+    split = (mv, mx, my, windows.windows(packed, mx, my, *args[4:]))
+    torch.cuda.synchronize()
+    assert frontend.frontend_windows.launches == n5 + 1
+    for other in (ref, split):
+        assert got[0].cpu().numpy().tobytes() == \
+            other[0].cpu().numpy().tobytes()
+        for x, y in zip(got[1:], other[1:]):
+            assert torch.equal(x, y)
+    flat = got[3].reshape(-1, W, W)
+    okey, _ = ccl.propagate(flat)
+    contrib = stats.cell_contrib(okey >> 2)
+    n7 = stats.stats_select.launches
+    km = stats.stats_select(okey, contrib)
+    assert stats.stats_select.launches == n7 + 1
+    assert torch.equal(km, stats.stats_select_plain(okey, contrib))
+    # contributions 4-7 carry the same low bits: & 3 masks the rest
+    assert torch.equal(km, stats.stats_select(okey, contrib | 4))
+    assert torch.equal(km, stats.stats(ccl.ccl(flat)[0])[0])
+    L = lightness_from_planes(*unpack_planes(packed)).to(torch.float32)
+    n9 = match.match_corr.launches
+    corr = match.match_corr(L, tmpl)
+    assert match.match_corr.launches == n9 + 1
+    torch.cuda.synchronize()
+    assert corr.cpu().numpy().tobytes() == \
+        match.match_corr_plain(L, tmpl).cpu().numpy().tobytes()
+    v1 = match.match_scores_v1(L, tmpl, dec.tmean)
+    torch.cuda.synchronize()
+    assert v1.cpu().numpy().tobytes() == \
+        match.match_scores(L, tmpl, dec.tmean).cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("variant", [("merged", "fused"),
+                                     ("merged", "hist_pallas"),
+                                     ("split", "sort")])
+def test_variant_decodes_on_card_equal_cpu(case, variant):
+    """The quad branch under the decode knobs on the card equals the CPU
+    decoder, and launches exactly the variant's kernels."""
+    dec, crops, _ = case
+    fe, qs = variant
+    decs = [MeterDecoder(dec.params, device=d, frontend=fe, quad_stats=qs)
+            for d in (dec.device, "cpu")]
+    kernels = (frontend.frontend, windows.windows, frontend.frontend_windows,
+               ccl.ccl, stats.stats, ccl.propagate, stats.stats_select)
+    before = [k.launches for k in kernels]
+    a = decs[0].decode_numpy(crops)
+    n = [k.launches - b for k, b in zip(kernels, before)]
+    _equal_results(a, decs[1].decode_numpy(crops))
+    want = {("merged", "fused"): [0, 0, 1, 1, 1, 0, 0],
+            ("merged", "hist_pallas"): [0, 0, 1, 0, 0, 1, 1],
+            ("split", "sort"): [1, 1, 0, 0, 0, 1, 0]}[variant]
+    assert n == want, n
+
+
 def _equal_results(a, b):
     for f in a._fields:
         x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))

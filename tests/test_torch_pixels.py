@@ -5,11 +5,17 @@ CPU: whole-frame pixels (``decode_bytes_full``), packed meter crops
 coefficients on streams its fast path rejects, the feed's fallback slots
 and the coefficient step's BatchResult.
 
+Streams come from PIL, from byte patches of them, and from libjpeg's
+own encoder through a small C helper (ENCODER_C, built with gcc against
+the installed libjpeg): genuine arithmetic-coded and sequential
+multi-scan streams, which PIL does not write.
+
 Tolerance: exact everywhere (pixels, coefficients, quant tables, ok
 flags, fallback slots, error codes, match locations), except the f64
 dial positions, which agree within 1e-9 (assert_port_equal of
 test_torch_decode)."""
 import io
+import subprocess
 
 import jax
 import numpy as np
@@ -48,6 +54,13 @@ def _sof_at(data):
         if m in data:
             return data.index(m)
     raise AssertionError("no SOF")
+
+
+def _sof_at_any(data):
+    """The first SOF0/1/2/9/10 marker of a stream."""
+    return min(data.index(m) for m in (b"\xff\xc0", b"\xff\xc1",
+                                       b"\xff\xc2", b"\xff\xc9",
+                                       b"\xff\xca") if m in data)
 
 
 def _patch(data, offset, value):
@@ -108,14 +121,24 @@ def _streams():
     for frac in (0.1, 0.3, 0.5, 0.8, 0.97):
         s[f"truncated_{frac}"] = base[:int(len(base) * frac)]
     prog = s["prog_420"]
-    for frac in (0.8, 0.97):             # inside the last refinement scans
+    # cut inside the last refinement scans, and before them (libjpeg then
+    # smooths the blocks: jdcoefct.c decompress_smooth_data)
+    for frac in (0.2, 0.35, 0.65, 0.8, 0.97):
         s[f"prog_truncated_{frac}"] = prog[:int(len(prog) * frac)]
+    s["prog_truncated_early"] = prog[:len(prog) // 2]
+    # SOF9/SOF10: the Huffman-coded data read by the arithmetic decoder
+    s["arithmetic"] = _patch(base, _sof_at(base) + 1, 0xC9)
+    s["arithmetic_prog"] = _patch(prog, _sof_at(prog) + 1, 0xCA)
     s444 = s["seq_444"]
     s["sampling_h1v2"] = _sampling(s444, (0x12, 0x11, 0x11))
     s["sampling_h2v1"] = _sampling(s444, (0x21, 0x11, 0x11))
     s["sampling_chroma22"] = _sampling(s444, (0x11, 0x22, 0x11))
     s["sampling_mixed"] = _sampling(s444, (0x22, 0x12, 0x21))
     s["prog_sampling_h1v2"] = _sampling(s["prog_444"], (0x12, 0x11, 0x11))
+    # sampling factors 3 and 4: libjpeg's int_upsample
+    s["sampling_3"] = _sampling(s444, (0x31, 0x11, 0x11))
+    s["sampling_h4"] = _sampling(s444, (0x41, 0x11, 0x11))
+    s["sampling_v4"] = _sampling(s444, (0x14, 0x11, 0x11))
     s["garbage_mid"] = (s444[:300] + bytes(rng.integers(0, 255, 200,
                                                         np.uint8))
                         + s444[500:])
@@ -131,10 +154,7 @@ def streams():
     return STREAMS
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_decoder_matches_libjpeg(streams, name):
-    """Whole frames and packed meter crops bit-equal to libjpeg's."""
-    data = streams[name]
+def _assert_matches_libjpeg(data, name):
     ref = jio._decode_bytes_full(data)
     got = tio.decode_bytes_full(data)
     assert ref is not None and got is not None, name
@@ -148,12 +168,129 @@ def test_decoder_matches_libjpeg(streams, name):
     assert np.array_equal(pk, pk_ref)
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_decoder_matches_libjpeg(streams, name):
+    """Whole frames and packed meter crops bit-equal to libjpeg's."""
+    _assert_matches_libjpeg(streams[name], name)
+
+
+# libjpeg's encoder: raw RGB in, a JPEG out, with arithmetic coding, one
+# scan per component (sequential) or jpeg_simple_progression, and a
+# restart interval in MCUs
+ENCODER_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <jpeglib.h>
+
+int main(int argc, char **argv)
+{
+    /* enc IN.rgb W H OUT.jpg QUALITY ARITH MODE RESTART; MODE 0: one
+     * interleaved scan, 1: one scan per component, 2: progressive */
+    if (argc != 9)
+        return 2;
+    int w = atoi(argv[2]), h = atoi(argv[3]), mode = atoi(argv[7]);
+    unsigned char *rgb = malloc((size_t)w * h * 3);
+    FILE *f = fopen(argv[1], "rb");
+    if (!f || fread(rgb, 3, (size_t)w * h, f) != (size_t)w * h)
+        return 3;
+    fclose(f);
+    struct jpeg_compress_struct c;
+    struct jpeg_error_mgr e;
+    static jpeg_scan_info si[3];
+    c.err = jpeg_std_error(&e);
+    jpeg_create_compress(&c);
+    FILE *o = fopen(argv[4], "wb");
+    jpeg_stdio_dest(&c, o);
+    c.image_width = w;
+    c.image_height = h;
+    c.input_components = 3;
+    c.in_color_space = JCS_RGB;
+    jpeg_set_defaults(&c);
+    jpeg_set_quality(&c, atoi(argv[5]), TRUE);
+    c.arith_code = atoi(argv[6]);
+    if (mode == 1) {
+        for (int k = 0; k < 3; k++) {
+            si[k].comps_in_scan = 1;
+            si[k].component_index[0] = k;
+            si[k].Ss = 0;
+            si[k].Se = 63;
+        }
+        c.scan_info = si;
+        c.num_scans = 3;
+    } else if (mode == 2) {
+        jpeg_simple_progression(&c);
+    }
+    c.restart_interval = atoi(argv[8]);
+    jpeg_start_compress(&c, TRUE);
+    while (c.next_scanline < c.image_height) {
+        JSAMPROW row = rgb + (size_t)c.next_scanline * w * 3;
+        jpeg_write_scanlines(&c, &row, 1);
+    }
+    jpeg_finish_compress(&c);
+    fclose(o);
+    jpeg_destroy_compress(&c);
+    return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def encode(tmp_path_factory):
+    """encode(frame_bgr, quality, arith=0, mode=0, restart=0) -> bytes, by
+    libjpeg's encoder (ENCODER_C, compiled here)."""
+    d = tmp_path_factory.mktemp("enc")
+    (d / "enc.c").write_text(ENCODER_C)
+    subprocess.run(["gcc", "-O1", "-o", str(d / "enc"), str(d / "enc.c"),
+                    "-ljpeg"], check=True, capture_output=True)
+
+    def run(frame_bgr, quality, arith=0, mode=0, restart=0):
+        h, w = frame_bgr.shape[:2]
+        (d / "in.rgb").write_bytes(
+            np.ascontiguousarray(frame_bgr[..., ::-1]).tobytes())
+        subprocess.run([str(d / "enc"), str(d / "in.rgb"), str(w), str(h),
+                        str(d / "out.jpg"), str(quality), str(arith),
+                        str(mode), str(restart)], check=True)
+        return (d / "out.jpg").read_bytes()
+    return run
+
+
+# (arith, mode, restart, cut): genuine libjpeg streams of the 160x128
+# frame, whole or cut at a fraction of their bytes
+ENCODED = {
+    "arith_seq": (1, 0, 0, None),
+    "arith_seq_restart": (1, 0, 2, None),
+    "arith_seq_multiscan": (1, 1, 0, None),
+    "arith_prog": (1, 2, 0, None),
+    "arith_prog_restart": (1, 2, 3, None),
+    "arith_seq_cut_0.5": (1, 0, 0, 0.5),
+    "arith_prog_cut_0.2": (1, 2, 0, 0.2),
+    "arith_prog_cut_0.65": (1, 2, 0, 0.65),
+    "seq_multiscan": (0, 1, 0, None),
+    "seq_multiscan_cut_0.5": (0, 1, 0, 0.5),
+    "prog_restart_cut_0.35": (0, 2, 2, 0.35),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENCODED))
+def test_decoder_matches_libjpeg_encoded_streams(encode, name):
+    """Arithmetic-coded (SOF9, SOF10, with restarts and cuts) and
+    sequential multi-scan streams written by libjpeg itself decode
+    bit-equal to libjpeg."""
+    arith, mode, restart, cut = ENCODED[name]
+    fr = _rng_frame(np.random.default_rng(7), *WH)
+    data = encode(fr, 85, arith, mode, restart)
+    sof = {(0, False): 0xC0, (0, True): 0xC2, (1, False): 0xC9,
+           (1, True): 0xCA}[arith, mode == 2]
+    assert data[_sof_at_any(data) + 1] == sof
+    _assert_matches_libjpeg(data if cut is None
+                            else data[:int(len(data) * cut)], name)
+
+
 def test_refused_streams(streams):
-    """What the decoder does not read. libjpeg refuses 12-bit, lossless and
-    CMYK-to-BGR too; arithmetic coding, sampling factors above 2 and a
-    progressive stream cut before its last AC refinements (libjpeg then
-    smooths blocks) it reads, and the port does not (ROADMAP queue 3,
-    fault 4): each of those keeps load_ok=False."""
+    """What the decoder does not read, as libjpeg's 8-bit BGR decode does
+    not: 12-bit, lossless, CMYK-to-BGR, a sampling ratio that is not an
+    integer (3/2: JERR_FRACT_SAMPLE_NOTIMPL) and an MCU of 11 blocks
+    (JERR_BAD_MCU_SIZE). Each keeps load_ok=False in both packages."""
     base = streams["seq_420"]
     i = _sof_at(base)
     rng = np.random.default_rng(4)
@@ -162,20 +299,16 @@ def test_refused_streams(streams):
                     "CMYK").save(cmyk, "JPEG", quality=80)
     both = {"12bit": _patch(base, i + 4, 12),
             "lossless": _patch(base, i + 1, 0xC3),
-            "cmyk": cmyk.getvalue()}
-    prog = streams["prog_420"]
-    port_only = {"arithmetic": _patch(base, i + 1, 0xC9),
-                 "sampling_3": _sampling(streams["seq_444"],
-                                         (0x31, 0x11, 0x11)),
-                 "prog_truncated_early": prog[:len(prog) // 2]}
-    for name, data in {**both, **port_only}.items():
+            "cmyk": cmyk.getvalue(),
+            "sampling_3_2": _sampling(streams["seq_444"], (0x31, 0x21, 0x11)),
+            "mcu_11_blocks": _sampling(streams["seq_444"],
+                                       (0x33, 0x11, 0x11))}
+    for name, data in both.items():
         assert tio.decode_bytes_full(data) is None, name
         _, ok = tio.load_packed_crops_from_bytes([data], Rect((0, 0), (8, 8)),
                                                  (8, 8))
         assert not ok[0], name
-    for name, data in both.items():
         assert jio._decode_bytes_full(data) is None, name
-    assert jio._decode_bytes_full(port_only["prog_truncated_early"]) is not None
 
 
 def _camera_frame_streams():
@@ -204,6 +337,7 @@ def _camera_frame_streams():
     s["progressive"] = _pil(frames[3], quality=92, subsampling=2,
                             progressive=True)
     s["444"] = _pil(frames[3], quality=92, subsampling=0)
+    s["arithmetic"] = _patch(base, _sof_at(base) + 1, 0xC9)
     return cam, s
 
 
@@ -226,7 +360,8 @@ def test_coefficient_reader_matches_jax(layout):
                                FRAME_WH, **kw)
     for k in range(5):
         assert np.array_equal(np.array(ref[k]), got[k]), k
-    want = {name: name not in ("progressive", "444") for name in s}
+    want = {name: name not in ("progressive", "444", "arithmetic")
+            for name in s}
     assert dict(zip(s, got[4].tolist())) == want
 
 
@@ -295,3 +430,66 @@ def test_coef_step_with_fallback_frames_matches_jax(steps):
     assert (res.err == 0).all()
     err = np.abs((res.dial_pos - np.array(pos) + 5) % 10 - 5)
     assert err.max() < 0.1, err.max()
+
+
+def test_coef_step_with_arithmetic_frames_matches_jax(steps, encode):
+    """Flagship frames that libjpeg's encoder wrote arithmetic-coded
+    (sequential, progressive, with restarts): both coefficient readers
+    refuse them (the JAX reader's rc 6) and both feeds decode them whole
+    into the fallback slots, the port's decoder now reading SOF9/SOF10.
+    The feeds' load flags and fallback slots, and the BatchResults, equal
+    the JAX package's."""
+    jdecoder, jstep, tstep, pad = steps
+    cam = t_syn.DEFAULT_CAMERA
+    pos = t_syn.dial_positions(4)
+    frames = cam.render_frames(pos)
+    datas = [t_syn.encode_jpeg(frames[0], 92),
+             encode(frames[1], 92, arith=1),
+             encode(frames[2], 92, arith=1, mode=2),
+             encode(frames[3], 92, arith=1, restart=4)]
+    jfeed = jio.load_coef_feed(datas, cam.meter_rect, FRAME_WH, pad)
+    tfeed = tio.load_coef_feed(datas, cam.meter_rect, FRAME_WH, pad)
+    for k in (4, 5, 6):                  # load_ok, fb_packed, fb_idx
+        assert np.array_equal(np.array(jfeed[k]), tfeed[k]), k
+    assert tfeed[4].all() and sorted(tfeed[6][:3].tolist()) == [1, 2, 3]
+    ref = jax.tree.map(np.asarray, jstep(jdecoder.param_arrays, *jfeed))
+    res = tstep(None, *tfeed)
+    res = type(res)(*[v.numpy() for v in res])
+    assert_port_equal(ref, res, "coef step with arithmetic frames")
+    err = np.abs((res.dial_pos - np.array(pos) + 5) % 10 - 5)
+    assert (res.err == 0).all() and err.max() < 0.1, err.max()
+
+
+def test_multiscan_sequential_is_a_reference_side_fault(steps, encode):
+    """Sequential 4:2:0 in one scan per component (libjpeg's encoder, noisy
+    flagship frames of ~130 KB). The JAX coefficient reader's libjpeg path
+    stops at the window's last iMCU row inside the first (Y) scan once its
+    4 KB chunks reach it (meterelf_jpeg.c:787-797), so it reports the frame
+    read with every chroma coefficient zero: the JAX feed's readings then
+    differ from the JAX pixel path's (ROADMAP, open faults on the reference
+    side). The port's reader refuses the frame, its feed decodes it whole
+    into a fallback slot, and its step equals the JAX pixel path."""
+    jdecoder, jstep, tstep, pad = steps
+    cam = t_syn.DEFAULT_CAMERA
+    pos = t_syn.dial_positions(4)
+    rng = np.random.default_rng(1)
+    frames = [np.clip(f.astype(int) + rng.integers(-20, 21, f.shape), 0,
+                      255).astype(np.uint8) for f in cam.render_frames(pos)]
+    datas = [encode(f, 92, mode=1) for f in frames]
+    win = jdec.coef_window(cam.meter_rect, *FRAME_WH)
+    coefs = jio.read_coefs_batch(datas, win, FRAME_WH)
+    assert np.asarray(coefs[4]).all()
+    assert not np.asarray(coefs[1]).any() and not np.asarray(coefs[2]).any()
+    jfeed = jio.load_coef_feed(datas, cam.meter_rect, FRAME_WH, pad)
+    jax_feed = jax.tree.map(np.asarray,
+                            jstep(jdecoder.param_arrays, *jfeed))
+    pk, ok = jio.load_packed_crops_from_bytes(datas, cam.meter_rect, pad)
+    jax_pixels = jdecoder.decode_numpy(pk, ok)
+    assert np.abs(jax_feed.dial_pos - jax_pixels.dial_pos).max() > 0.1
+    tfeed = tio.load_coef_feed(datas, cam.meter_rect, FRAME_WH, pad)
+    assert tfeed[4].all() and sorted(tfeed[6][:4].tolist()) == [0, 1, 2, 3]
+    res = tstep(None, *tfeed)
+    res = type(res)(*[v.numpy() for v in res])
+    assert_port_equal(jax_pixels, res, "multi-scan frames vs JAX pixels")
+    err = np.abs((res.dial_pos - np.array(pos) + 5) % 10 - 5)
+    assert (res.err == 0).all() and err.max() < 0.1, err.max()
