@@ -23,7 +23,9 @@ Runs from the root of a checkout, with nothing built beforehand:
    K2, K7's keymax against K4's, K9's v1 map against K8's; times both
    with CUDA events, and times the library yardstick where one PyTorch
    call computes the same function (K1's, K8's and K9's correlation as an
-   fp32 conv2d, TF32 off);
+   fp32 conv2d, TF32 off); prints the int8 tensor-core instructions the
+   correlation kernels (K1, K5, K8, K9) execute beside the MACs the
+   function needs;
 4. drives each path with every launch count reset to 0 first: the crop
    decode (MeterDecoder(device="cuda").decode_numpy) and the coefficient
    path (make_coef_decode_fn's step) of both cameras (quad branch), the
@@ -44,8 +46,8 @@ Runs from the root of a checkout, with nothing built beforehand:
 5. prints the throughput of the paths (the four quad-branch variants
    timed in turns, split/merged x fused/hist_pallas), the host feed time
    with fallback frames, and the device time of a steady batch of the
-   quad, coefficient, general and merged + hist_pallas paths by kernel
-   (torch.profiler) with the device busy share;
+   quad, coefficient, general, scorer-only and merged + hist_pallas paths
+   by kernel (torch.profiler) with the device busy share;
 6. prints a JSON line of per-kernel results (launches from the
    coefficient path; K6's from the general branch, K8's from the
    scorer-only branch, K5's and K7's from the merged + hist_pallas crop
@@ -242,6 +244,15 @@ def backhalf_blocks_needed(win) -> int:
               * span(max((win.ox >> 1) - 1, 0),
                      min(((win.ox + win.rw - 1) >> 1) + 1, win.cw_valid - 1)))
     return luma + 2 * chroma
+
+
+def corr_mma(H: int, W: int, th: int, tw: int) -> int:
+    """mma.sync.m16n8k32 instructions the tensor-core correlation
+    (csrc/corr_mma.cuh) executes for one image: 16-wide x tiles times
+    8-high y tiles, times th template rows, times the k32 steps of each
+    x tile's band, ceil((tw + 15) / 32)."""
+    oh, ow = H - th + 1, W - tw + 1
+    return -(-ow // 16) * -(-oh // 8) * th * -(-(tw + 15) // 32)
 
 
 def profile_ms(label: str, fn, reps: int = 5) -> None:
@@ -457,6 +468,11 @@ def main() -> int:
         results["frontend"].update(bound(
             packed.numel() * 4 + th * tw + 12 * B, 2 * macs,
             INT8_TC_OPS_PER_S))
+        n_mma = B * corr_mma(H, W, th, tw)
+        say(f"correlation (K1, K5, K8, K9; B={B}, {H}x{W} crop, {th}x{tw} "
+            f"template): {n_mma} mma.sync.m16n8k32 = {n_mma * 4096 / 1e9:.3f}"
+            f" G int8 MACs executed, {n_mma * 4096 / macs:.3f}x the "
+            f"function's {macs / 1e9:.3f} G")
 
     def k2() -> None:
         args = (packed, state["mx"], state["my"], dec.geom, dec.disk,
@@ -1073,6 +1089,7 @@ def main() -> int:
         fd, fb = state["feed_dev"], state["feed"][5:]
         profile_ms("coefficient step", lambda: step(None, *fd, *fb))
         profile_ms("general branch decode", lambda: five_dec(five_packed))
+        profile_ms("scorer-only branch decode", lambda: sc_dec(packed))
         profile_ms("variant merged + hist_pallas decode",
                    lambda: variants[("merged", "hist_pallas")](packed))
 

@@ -13,16 +13,24 @@
 // with each operation rounded once (c1 = 128 - tmean, c0 the f32 residual
 // of the rounded template mean; both from the host in f64).
 //
-// What bounds it on the H100: integer multiply-adds. 132 x 63 offsets x
-// 119 x 188 taps = 186 M MACs per flagship image. The design keeps it on
-// the SM: one CTA per image stages L-128 and T-128 as int8 in shared
-// memory, beside the per-row window sums of L-128 (153,400 bytes at the
-// flagship shape, so the image is read from device memory once), and each
-// thread computes 4 neighbouring x offsets with __dp4a (4 MACs per
-// instruction) from two 32-bit shared loads and three byte permutes per
-// template word (corr_dp4a.cuh, shared with K8). The box sum comes from
-// per-row window sums staged once per image. No superwindow is written: K2 reads the windows straight
-// from the crop at (mx, my).
+// What bounds it on the H100: int8 multiply-adds. 132 x 63 offsets x
+// 119 x 188 taps = 186 M MACs per flagship image, 0.048 ms a batch of 256
+// at the int8 tensor-core peak. The design puts them on the tensor cores
+// and keeps the image on the SM: one CTA per image stages L-128 and T-128
+// as int8 in shared memory beside the column prefix of the row-window
+// sums of L-128 (162,804 bytes at the flagship shape, so the image is read
+// from device memory once), and its 16 warps run the correlation as an
+// implicit GEMM of mma.sync.m16n8k32 int8 instructions (corr_mma.cuh,
+// shared with K8 and K9): 56,644 a flagship image, 4,096 MACs each, 1.25x
+// the MACs the function needs (the band's padding). Beside each mma a
+// warp issues one ldmatrix and its share of the band fragment's shared
+// loads; the score and the argmax run on the accumulators in registers.
+// On an H100 SXM at 700 W the loop spends ~5.3 SM clocks per mma where
+// mma.sync alone sustains ~1.7 (experiments/torch_corr_sweep.py): those
+// shared-memory loads (~3.6 wavefronts a mma, counted, not profiled) are
+// the likeliest bound now, beside ~0.05 ms a batch of serial staging.
+// No superwindow is written: K2 reads the windows straight from the crop
+// at (mx, my).
 //
 // K5 `frontend_windows` (the same kernel, kWindows = true) replaces
 // meterelf_tpu/ops/pallas_frontend.py frontend_windows_pallas
@@ -38,7 +46,7 @@
 #include <float.h>
 #include <limits.h>
 
-#include "corr_dp4a.cuh"
+#include "corr_mma.cuh"
 #include "exact_color.cuh"
 #include "meterelf_kernels.h"
 #include "window_bits.cuh"
@@ -70,41 +78,32 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) unsigned char smem[];
   const corr8::Layout g = corr8::layout(H, W, th, tw);
   int8_t* sL = reinterpret_cast<int8_t*>(smem);
-  const int oh = H - th + 1, ow = W - tw + 1;
+  const int ow = g.ow;
   const int tid = threadIdx.x;
   const int32_t* img = packed + (size_t)blockIdx.x * H * W;
 
-  // stage L - 128 (zero past column W), then T - 128 and the row sums
-  for (int i = tid; i < H * g.ls; i += kThreads) {
+  // stage L - 128 (zero past row H and column W), then T - 128 and P
+  for (int i = tid; i < g.lrows * g.ls; i += kThreads) {
     const int y = i / g.ls, x = i - y * g.ls;
-    sL[i] = (int8_t)(x < W ? meterelf_lightness(img[y * W + x]) - 128 : 0);
+    sL[i] = (int8_t)(y < H && x < W
+                         ? meterelf_lightness(img[y * W + x]) - 128 : 0);
   }
-  corr8::stage_template_and_sums(smem, g, H, W, tmpl, th, tw, kThreads);
+  corr8::stage_template_and_sums(smem, g, H, tmpl, th, tw, kThreads);
 
-  // correlation: work item = (y, group of 4 x offsets)
-  const int ngx = (ow + 3) / 4;
   float best = -FLT_MAX;
   int best_i = INT_MAX;
-  for (int it = tid; it < oh * ngx; it += kThreads) {
-    const int y = it / ngx;
-    const int x0 = (it - y * ngx) * 4;
-    int acc[4], box[4];
-    corr8::corr4(smem, g, ow, th, y, x0, acc, box);
-#pragma unroll
-    for (int dx = 0; dx < 4; ++dx) {
-      if (x0 + dx < ow) {
-        const float s = __fadd_rn(
-            __fadd_rn(__int2float_rn(acc[dx]),
-                      __fmul_rn(c1, __int2float_rn(box[dx]))),
-            c0);
-        const int i = y * ow + x0 + dx;
-        if (better(s, i, best, best_i)) {
-          best = s;
-          best_i = i;
-        }
-      }
+  corr8::correlate<kThreads / 32>(smem, g, th, [&](int y, int x, int acc) {
+    const float s = __fadd_rn(
+        __fadd_rn(__int2float_rn(acc),
+                  __fmul_rn(c1, __int2float_rn(corr8::box(smem, g, th, y,
+                                                          x)))),
+        c0);
+    const int i = y * ow + x;
+    if (better(s, i, best, best_i)) {
+      best = s;
+      best_i = i;
     }
-  }
+  });
 
   // block argmax, ties to the smaller row-major index
   for (int off = 16; off > 0; off >>= 1) {

@@ -18,11 +18,16 @@
 // measured tolerance); the plain version (ops/match.py) equals this one
 // bit for bit.
 //
-// What bounds it on the H100: integer multiply-adds, as K1 (47.63 G int8
-// MACs per flagship batch of 256). The design is K1's: one CTA per image
-// stages L' and T' in shared memory (153,400 bytes at the flagship
-// shape), and the correlation core of corr_dp4a.cuh computes 4 offsets a
-// thread with __dp4a; the whole map is written instead of an argmax.
+// What bounds it on the H100: int8 multiply-adds, as K1 (47.63 G MACs per
+// flagship batch of 256, 0.048 ms at the int8 tensor-core peak). The
+// design is K1's: one CTA per image stages L' and T' in shared memory
+// (162,804 bytes at the flagship shape), and the implicit GEMM of
+// corr_mma.cuh runs the correlation on the int8 tensor cores
+// (mma.sync.m16n8k32, 1.25x the function's MACs with the band's padding);
+// each lane writes the map from its accumulators instead of an argmax.
+// As in K1, the shared-memory loads beside each mma (one ldmatrix, a
+// share of the band's), not the tensor cores, are the likeliest bound of
+// the loop (frontend.cu).
 //
 // K9 `match_corr` (the same kernel, kScore = false) replaces
 // meterelf_tpu/ops/pallas_match.py match_scores_pallas (_corr_kernel),
@@ -33,7 +38,7 @@
 // match_scores_v1). Its bound is K8's operations.
 #include <cuda_runtime.h>
 
-#include "corr_dp4a.cuh"
+#include "corr_mma.cuh"
 #include "meterelf_kernels.h"
 
 namespace {
@@ -48,41 +53,31 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) unsigned char smem[];
   const corr8::Layout g = corr8::layout(H, W, th, tw);
   int8_t* sL = reinterpret_cast<int8_t*>(smem);
-  const int oh = H - th + 1, ow = W - tw + 1;
+  const int ow = g.ow;
   const int tid = threadIdx.x;
   const float* img = lightness + (size_t)blockIdx.x * H * W;
 
-  for (int i = tid; i < H * g.ls; i += kThreads) {
+  for (int i = tid; i < g.lrows * g.ls; i += kThreads) {
     const int y = i / g.ls, x = i - y * g.ls;
-    sL[i] = (int8_t)(x < W ? (int)img[y * W + x] - 128 : 0);
+    sL[i] = (int8_t)(y < H && x < W ? (int)img[y * W + x] - 128 : 0);
   }
-  corr8::stage_template_and_sums(smem, g, H, W, tmpl, th, tw, kThreads);
+  corr8::stage_template_and_sums(smem, g, H, tmpl, th, tw, kThreads);
 
   const unsigned n128 = 128u * (unsigned)(th * tw);
   const unsigned t128 = 128u * (unsigned)tsum;
-  float* out = scores + (size_t)blockIdx.x * oh * ow;
-  const int ngx = (ow + 3) / 4;
-  for (int it = tid; it < oh * ngx; it += kThreads) {
-    const int y = it / ngx;
-    const int x0 = (it - y * ngx) * 4;
-    int acc[4], box[4];
-    corr8::corr4(smem, g, ow, th, y, x0, acc, box);
-#pragma unroll
-    for (int dx = 0; dx < 4; ++dx) {
-      if (x0 + dx < ow) {
-        // unsigned: the terms wrap, the sum is the exact corr < 2^31
-        const int corr = (int)((unsigned)acc[dx]
-                               + 128u * (unsigned)box[dx] + t128);
-        if constexpr (kScore) {
-          const int bx = (int)((unsigned)box[dx] + n128);
-          out[y * ow + x0 + dx] = __fsub_rn(
-              __int2float_rn(corr), __fmul_rn(tmean, __int2float_rn(bx)));
-        } else {
-          out[y * ow + x0 + dx] = __int2float_rn(corr);
-        }
-      }
+  float* out = scores + (size_t)blockIdx.x * g.oh * ow;
+  corr8::correlate<kThreads / 32>(smem, g, th, [&](int y, int x, int acc) {
+    const unsigned box = (unsigned)corr8::box(smem, g, th, y, x);
+    // unsigned: the terms wrap, the sum is the exact corr < 2^31
+    const int corr = (int)((unsigned)acc + 128u * box + t128);
+    if constexpr (kScore) {
+      const int bx = (int)(box + n128);
+      out[y * ow + x] = __fsub_rn(__int2float_rn(corr),
+                                  __fmul_rn(tmean, __int2float_rn(bx)));
+    } else {
+      out[y * ow + x] = __int2float_rn(corr);
     }
-  }
+  });
 }
 
 template <bool kScore>

@@ -99,20 +99,27 @@ def fits(crop_h: int, crop_w: int, th: int, tw: int) -> bool:
 
 
 def smem_bytes(H: int, W: int, th: int, tw: int) -> int:
-    """Shared memory K1 stages for one image (frontend_layout in
-    csrc/frontend.cu): L - 128 rows of round16(W + 8) bytes, the template
-    rows of round4(tw) bytes, and the per-row window sums."""
-    def up(x: int, m: int) -> int:
-        return -(-x // m) * m
-
-    off_rw = up(H * up(W + 8, 16) + th * up(tw, 4), 16)
-    return off_rw + (H * (W - tw + 1) + 4) * 4
+    """Shared memory the correlation stages for one image in K1, K8 and
+    K9 (K5 takes the larger of this and its window stage;
+    corr8::layout in csrc/corr_mma.cuh): the L - 128 rows of every
+    (16 x, 8 y) tile's reach, 8 * ceil(oh / 8) + th - 1 rows of 16 * odd
+    bytes covering the nj = ceil((tw + 15) / 32) k32 steps of the last x
+    tile; the template rows with 16-byte zero margins, 32 * nj + 32
+    bytes; and the column prefix of the row-window sums, [H + 1, ow]
+    i32."""
+    oh, ow = H - th + 1, W - tw + 1
+    nj = -(-(tw + 15) // 32)
+    ls = 16 * (-(-ow // 16) - 1) + 32 * nj
+    if ls % 32 == 0:
+        ls += 16
+    lrows = 8 * -(-oh // 8) + th - 1
+    return lrows * ls + th * (32 * nj + 32) + (H + 1) * ow * 4
 
 
 def frontend_ok(crop_h: int, crop_w: int, th: int, tw: int) -> bool:
     """The frontend branches' gate: the JAX package's, and K1's staging
     within a block's shared memory (never the binding condition inside
-    the JAX gate: its largest geometries stage under 218 KB)."""
+    the JAX gate: its largest geometries stage under 228 KB)."""
     return (fits(crop_h, crop_w, th, tw)
             and smem_bytes(crop_h, crop_w, th, tw) <= SMEM_LIMIT)
 

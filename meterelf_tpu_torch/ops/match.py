@@ -6,8 +6,14 @@ its argmax.
   match_scores_pallas_fused: lightness [B, H, W] f32 (integer values),
   template [th, tw] u8, tmean f32 -> scores = corr - tmean * box, f32
   [B, oh, ow]. corr = sum L*T and box = sum L are exact integers (the
-  int8 decomposition of K1, csrc/corr_dp4a.cuh), and the score is
-  f32(corr) - tmean * f32(box), each operation rounded once. The TPU
+  int8 decomposition of K1), and the score is f32(corr) - tmean *
+  f32(box), each operation rounded once. Its bound on the H100 is its
+  int8 multiply-adds (47.63 G a flagship batch of 256); it runs them
+  on the int8 tensor cores as K1 does, an implicit GEMM of
+  mma.sync.m16n8k32 instructions against a band matrix built from each
+  template row in registers, with the image staged once in shared
+  memory (csrc/corr_mma.cuh; csrc/frontend.cu notes what bounds the
+  loop as measured). The TPU
   kernel sums its row partials in f32, so its map agrees with this one
   within a relative tolerance, not bit for bit (tests state it).
   ``match_scores_plain`` computes the same map in torch, bit-equal to the

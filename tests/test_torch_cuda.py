@@ -92,7 +92,8 @@ def test_propagate_and_match_kernels_equal_plain(case):
     assert got.cpu().numpy().tobytes() == ref.cpu().numpy().tobytes()
     lib = _build.library()
     for shape in ((250, 250, 119, 188), (200, 210, 90, 141),
-                  (256, 256, 128, 129)):
+                  (256, 256, 128, 129), (250, 256, 128, 192),
+                  (120, 200, 40, 141)):
         assert lib.meterelf_frontend_smem_bytes(*shape) == \
             frontend.smem_bytes(*shape)
 
@@ -139,6 +140,93 @@ def test_variant_kernels_equal_plain(case):
     torch.cuda.synchronize()
     assert v1.cpu().numpy().tobytes() == \
         match.match_scores(L, tmpl, dec.tmean).cpu().numpy().tobytes()
+
+
+# (H, W, th, tw) of the tensor-core correlation's card tests, for K1/K5
+# and for K8/K9: ALT_CAMERA's template (K8's gate admits it on maps up to
+# 205 wide, ow <= 65), the largest staging each gate admits, and a
+# template under 64 rows
+CORR_GEOMS = {
+    "alt": ((200, 210, 90, 141), (200, 205, 90, 141)),
+    "largest": ((256, 256, 128, 129), (250, 256, 128, 192)),
+    "short": ((120, 200, 40, 141), (120, 200, 40, 141)),
+}
+
+
+def _corr_inputs(shape, fill, dev):
+    """Packed grey-or-random crops [B, H, W] and a template [th, tw] on
+    the card; fill "a_b" makes every lightness a and every template
+    value b (the accumulator extremes)."""
+    H, W, th, tw = shape
+    rng = np.random.default_rng(H * 3 + tw)
+    B = 1 if th < 64 else 3   # K5's windows must fit every row's argmax
+    if fill == "random":
+        bgr = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
+        tmpl = rng.integers(0, 256, (th, tw), dtype=np.uint8)
+    else:
+        lv, tv = map(int, fill.split("_"))
+        bgr = np.full((B, H, W, 3), lv, np.uint8)
+        tmpl = np.full((th, tw), tv, np.uint8)
+    return (torch.as_tensor(tio.pack_crops(bgr)).to(dev),
+            torch.as_tensor(tmpl).to(dev), tmpl)
+
+
+def _fitting_geom(base, mx, my, H, W):
+    """K5's 4 dials with window origins at the corners of the range that
+    keeps every row's windows inside the crop; the rest of each dial as
+    the flagship's."""
+    x_lo, x_hi = -int(mx.min()), W - 64 - int(mx.max())
+    y_lo, y_hi = -int(my.min()), H - 64 - int(my.max())
+    assert x_lo <= x_hi and y_lo <= y_hi
+    corners = ((x_lo, y_lo), (x_hi, y_lo), (x_lo, y_hi), (x_hi, y_hi))
+    return [c + tuple(g[2:]) for c, g in zip(corners, base)]
+
+
+@pytest.mark.parametrize("fill", ["random", "0_0", "255_255", "0_255"])
+@pytest.mark.parametrize("name", sorted(CORR_GEOMS))
+def test_correlation_kernels_equal_plain(case, name, fill):
+    """K1, K5, K8 and K9 on the int8 tensor cores bit-equal to their
+    plain versions at ALT_CAMERA's template, the largest gated stagings,
+    a template under 64 rows, and all-0 / all-255 operands (every
+    product +2^14, +127^2, or -128 * 127)."""
+    dec, _, _ = case
+    dev = dec.device
+    fe_shape, sc_shape = CORR_GEOMS[name]
+    packed, tmpl, tmpl_np = _corr_inputs(fe_shape, fill, dev)
+    c1, c0 = frontend.score_constants(tmpl_np)
+    n1, n5 = frontend.frontend.launches, frontend.frontend_windows.launches
+    got = frontend.frontend(packed, tmpl, c1, c0)
+    ref = frontend.frontend_plain(packed, tmpl, c1, c0)
+    torch.cuda.synchronize()
+    assert got[0].cpu().numpy().tobytes() == ref[0].cpu().numpy().tobytes()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    geom = _fitting_geom(dec.geom, ref[1].cpu(), ref[2].cpu(),
+                         *fe_shape[:2])
+    args = (packed, tmpl, c1, c0, geom, dec.disk, dec.hue_shift)
+    got5 = frontend.frontend_windows(*args)
+    ref5 = frontend.frontend_windows_plain(*args)
+    torch.cuda.synchronize()
+    assert got5[0].cpu().numpy().tobytes() == \
+        ref5[0].cpu().numpy().tobytes()
+    for x, y in zip(got5[1:], ref5[1:]):
+        assert torch.equal(x, y)
+    assert (frontend.frontend.launches, frontend.frontend_windows.launches) \
+        == (n1 + 1, n5 + 1)
+
+    packed, tmpl, tmpl_np = _corr_inputs(sc_shape, fill, dev)
+    assert match.fits(*sc_shape)
+    L = lightness_from_planes(*unpack_planes(packed)).to(torch.float32)
+    tmean = float(np.float32(tmpl_np.astype(np.int64).sum())
+                  / np.float32(tmpl_np.size))
+    n8, n9 = match.match_scores.launches, match.match_corr.launches
+    for got, ref in ((match.match_scores(L, tmpl, tmean),
+                      match.match_scores_plain(L, tmpl, tmean)),
+                     (match.match_corr(L, tmpl),
+                      match.match_corr_plain(L, tmpl))):
+        torch.cuda.synchronize()
+        assert got.cpu().numpy().tobytes() == ref.cpu().numpy().tobytes()
+    assert (match.match_scores.launches, match.match_corr.launches) == \
+        (n8 + 1, n9 + 1)
 
 
 @pytest.mark.parametrize("variant", [("merged", "fused"),
