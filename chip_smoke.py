@@ -25,7 +25,12 @@ Runs from the root of a checkout, with nothing built beforehand:
    call computes the same function (K1's, K8's and K9's correlation as an
    fp32 conv2d, TF32 off); prints the int8 tensor-core instructions the
    correlation kernels (K1, K5, K8, K9) execute beside the MACs the
-   function needs;
+   function needs; for K3 and K6 counts the passes each window runs per
+   phase (from the kernel's flags under single-phase caps, equal to the
+   plain version's), bounds the work those passes need, times the kernel
+   through its wrapper (``ms``, as every kernel) and over launches of its
+   C entry alone (``kernel_ms``), and repeats all of it on the flagship
+   crops with 1 % speckle;
 4. drives each path with every launch count reset to 0 first: the crop
    decode (MeterDecoder(device="cuda").decode_numpy) and the coefficient
    path (make_coef_decode_fn's step) of both cameras (quad branch), the
@@ -137,6 +142,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def speckle(crops: np.ndarray) -> np.ndarray:
+    """The crops with 1 % of their pixels set to red (seed 3): windows
+    that need more label passes than the clean ones."""
+    out = crops.copy()
+    rng = np.random.default_rng(3)
+    out[rng.random(out.shape[:3]) < 0.01] = (40, 40, 200)
+    return out
+
+
+def window_bits(dec, packed):
+    """K1 then K2 on packed crops: the dial windows' bits [K, 64, 64]."""
+    from meterelf_tpu_torch.ops import frontend, windows
+
+    _, mx, my = frontend.frontend(packed, dec.param_arrays.template_u8,
+                                  dec.score_c1, dec.score_c0)
+    return windows.windows(packed, mx, my, dec.geom, dec.disk,
+                           dec.hue_shift).reshape(-1, 64, 64)
+
+
 def render(camera, n: int, step: float, spread: float):
     from meterelf_tpu_torch.synthetic import dial_positions
 
@@ -246,6 +270,65 @@ def backhalf_blocks_needed(win) -> int:
     return luma + 2 * chroma
 
 
+# int32 operations one CCL pass needs (the function, not what csrc/ccl.cu
+# executes): a label half-pass 15 a masked pixel (the 3x3 min and its
+# select 9, each of the two segmented sweeps 3); an outside half-pass 128
+# a 64-pixel row (on bit planes one int32 operation covers 32 pixels: any4
+# 16, the row fill's six steps 60, the column fill's 48, the compare 4); a
+# fill pass 10 an enclosed pixel; then 6 a pixel to read the bits and
+# pack the key. Counted over the passes each window runs (ccl_passes).
+CCL_OPS_LABEL_PX = 15
+CCL_OPS_OUTSIDE_ROW = 128
+CCL_OPS_FILL_PX = 10
+CCL_OPS_PX = 6
+
+
+def ccl_passes(propagate, bits) -> list:
+    """Passes each window runs in each phase (labels, outside, fill) under
+    the default caps, read from the converged flags of
+    propagate(bits, caps): the labels converge within k passes iff the flag
+    is set under caps (k, 0, 0) (a zero cap leaves its phase's flag set),
+    the outside under (0, k, 0) (it reads no label), the fill under the
+    rescue caps' label and outside passes and k; a window that does not
+    converge within a cap runs the cap."""
+    import torch
+    from meterelf_tpu_torch.ops import components
+
+    rl, ro, _ = components.RESCUE_CAPS
+    phases = ((components.K_LABEL, lambda k: (k, 0, 0)),
+              (components.K_OUTSIDE, lambda k: (0, k, 0)),
+              (components.K_FILL, lambda k: (rl, ro, k)))
+    out = []
+    for cap, caps_of in phases:
+        n = torch.full((bits.shape[0],), cap, dtype=torch.int64,
+                       device=bits.device)
+        for k in range(cap, 0, -1):
+            n = torch.where(propagate(bits, caps_of(k))[1], k, n)
+        out.append(n)
+    return out
+
+
+def ccl_ops_needed(bits, passes: list, owner) -> int:
+    """The int32 operations of CCL_OPS_* over the passes each window runs;
+    the enclosed pixels are the non-masked ones that the fill gave an
+    owner under the rescue caps (``owner``): every enclosed hole borders
+    a masked pixel, since the window's edge lies off the disk."""
+    masked = (bits & 1) != 0
+    enclosed = (~masked & (owner < 64 * 64)).flatten(1).sum(1)
+    n_lab, n_out, n_fill = passes
+    return (int((n_lab * masked.flatten(1).sum(1)).sum()) * CCL_OPS_LABEL_PX
+            + int(n_out.sum()) * 64 * CCL_OPS_OUTSIDE_ROW
+            + int((n_fill * enclosed).sum()) * CCL_OPS_FILL_PX
+            + bits.numel() * CCL_OPS_PX)
+
+
+def histogram(n) -> dict:
+    import torch
+
+    k, c = torch.unique(n, return_counts=True)
+    return {int(a): int(b) for a, b in zip(k.tolist(), c.tolist())}
+
+
 def corr_mma(H: int, W: int, th: int, tw: int) -> int:
     """mma.sync.m16n8k32 instructions the tensor-core correlation
     (csrc/corr_mma.cuh) executes for one image: 16-wide x tiles times
@@ -257,8 +340,8 @@ def corr_mma(H: int, W: int, th: int, tw: int) -> int:
 
 def profile_ms(label: str, fn, reps: int = 5) -> None:
     """Device time by kernel over reps steady calls of fn
-    (torch.profiler), and the device busy share against their wall
-    time."""
+    (torch.profiler): the largest twelve and every kernel of the port's
+    own, and the device busy share against their wall time."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -291,8 +374,10 @@ def profile_ms(label: str, fn, reps: int = 5) -> None:
         f"busy {busy:.3f} ms/batch ({100 * busy / wall_ms:.1f}%), "
         f"{sum(r[1] for r in found)} kernels and {n_ops // reps} aten "
         "ops per batch")
-    for ms, n, key in found[:12]:
-        say(f"  {ms:8.4f} ms  x{n:<3d} {key[:90]}")
+    # the 12 largest, and the port's own kernels wherever they rank
+    for i, (ms, n, key) in enumerate(found):
+        if i < 12 or "(anonymous namespace)::" in key:
+            say(f"  {ms:8.4f} ms  x{n:<3d} {key[:90]}")
 
 
 def main() -> int:
@@ -492,22 +577,57 @@ def main() -> int:
             px * 4 + px * 4 + dec.disk.numel() + 8 * packed.shape[0],
             30 * px, FP32_OPS_PER_S))
 
+    def ccl_case(label: str, name: str, kernel, bits) -> dict:
+        """K3 (``ccl``) or K6 (``propagate``) on window bits: bit-equal to
+        the plain version, the passes each window runs per phase (equal to
+        the plain version's, printed as histograms), the wrapper's time
+        (``ms``) and the device time over back-to-back launches of the C
+        entry alone (``kernel_ms``: no bool cast, no host work), and the
+        bound of the work these passes need."""
+        pack_closed = name == "ccl"
+
+        def plain(b, caps=None):
+            return components.propagate(b, caps, pack_closed=pack_closed)
+
+        ok_g, cv_g = kernel(bits)
+        ok_r, cv_r = plain(bits)
+        check(torch.equal(ok_g, ok_r), f"{label}: okey differs")
+        check(torch.equal(cv_g, cv_r), f"{label}: converged differs")
+        passes = ccl_passes(kernel, bits)
+        check(all(torch.equal(a, b)
+                  for a, b in zip(passes, ccl_passes(plain, bits))),
+              f"{label}: passes differ from the plain version's")
+        owner = kernel(bits, components.RESCUE_CAPS)[0] >> (
+            3 if pack_closed else 2)
+        K = bits.shape[0]
+        okey = torch.empty_like(bits)
+        conv = torch.empty(K, dtype=torch.uint8, device=dev)
+        entry = getattr(lib, f"meterelf_{name}")
+        args = ccl_ops.c_args(bits, None, okey, conv)
+        check(entry(*args) == 0, f"{label}: launch failed")
+        r = {"max_abs_err": float((ok_g - ok_r).abs().max()),
+             "ms": cuda_ms(lambda: kernel(bits), 20),
+             "kernel_ms": cuda_ms(lambda: entry(*args), 20),
+             **bound(bits.numel() * 8 + K,
+                     ccl_ops_needed(bits, passes, owner), INT32_OPS_PER_S)}
+        say(f"{label}: {K} windows, passes a window (labels, outside, "
+            f"fill) {[histogram(n) for n in passes]} (equal to the plain "
+            f"version's); wrapper {r['ms']} ms, C entry {r['kernel_ms']} "
+            f"ms; bound {r['bound_ms']} ms ({r['bound_by']})")
+        return r
+
     def k3() -> None:
         bits = state["bits"]
-        ok_g, cv_g = ccl_ops.ccl(bits)
-        ok_r, cv_r = components.propagate(bits)
-        results["ccl"]["max_abs_err"] = float((ok_g - ok_r).abs().max())
-        check(torch.equal(ok_g, ok_r), "okey3 differs")
-        check(torch.equal(cv_g, cv_r), "converged differs")
-        state["okey3"] = ok_g
-        results["ccl"]["ms"] = cuda_ms(lambda: ccl_ops.ccl(bits), 20)
+        results["ccl"].update(ccl_case("K3 flagship", "ccl", ccl_ops.ccl,
+                                       bits))
+        state["okey3"] = ccl_ops.ccl(bits)[0]
         results["ccl"]["plain_ms"] = cuda_ms(
             lambda: components.propagate(bits), 3)
-        # bits read, okey3 written; at least one 3x3 label pass (9 int32
-        # ops a pixel): the data-dependent pass count is not observed
-        px = bits.numel()
-        results["ccl"].update(bound(px * 8 + bits.shape[0], 9 * px,
-                                    INT32_OPS_PER_S))
+        # the second input: the flagship crops with 1 % speckle, K1 + K2
+        state["speckled_bits"] = window_bits(
+            dec, torch.as_tensor(tio.pack_crops(speckle(crops))).to(dev))
+        ccl_case("K3 speckled flagship", "ccl", ccl_ops.ccl,
+                 state["speckled_bits"])
 
     def k4() -> None:
         okey3 = state["okey3"]
@@ -574,26 +694,13 @@ def main() -> int:
 
     def k6() -> None:
         # the general branch's windows: FIVE_DIAL_CAMERA at B_MAIN, K1 + K2
-        fpa = five_dec.param_arrays
-        _, mx, my = frontend.frontend(five_packed, fpa.template_u8,
-                                      five_dec.score_c1, five_dec.score_c0)
-        bits = win_ops.windows(five_packed, mx, my, five_dec.geom,
-                               five_dec.disk, five_dec.hue_shift).reshape(
-                                   -1, 64, 64)
-        ok_g, cv_g = ccl_ops.propagate(bits)
-        ok_r, cv_r = components.propagate(bits, pack_closed=False)
-        results["propagate"]["max_abs_err"] = float((ok_g - ok_r).abs().max())
-        check(torch.equal(ok_g, ok_r), "okey differs")
-        check(torch.equal(cv_g, cv_r), "converged differs")
-        results["propagate"]["ms"] = cuda_ms(
-            lambda: ccl_ops.propagate(bits), 20)
+        bits = window_bits(five_dec, five_packed)
+        results["propagate"].update(ccl_case(
+            "K6 five-dial", "propagate", ccl_ops.propagate, bits))
         results["propagate"]["plain_ms"] = cuda_ms(
             lambda: components.propagate(bits, pack_closed=False), 3)
-        # bits read, okey written (32 KB a window); at least one 3x3 label
-        # pass (9 int32 ops a pixel)
-        px = bits.numel()
-        results["propagate"].update(bound(px * 8 + bits.shape[0], 9 * px,
-                                          INT32_OPS_PER_S))
+        ccl_case("K6 speckled flagship", "propagate", ccl_ops.propagate,
+                 state["speckled_bits"])
         say(f"K6 input: {tuple(bits.shape)} windows "
             f"({B_MAIN} five-dial crops)")
 

@@ -126,6 +126,28 @@ def _build(target: Path) -> str:
                     "the CUDA kernels")
 
 
+def _bind(lib: ctypes.CDLL, names) -> ctypes.CDLL:
+    """Set the C signature of each exported function in ``names``."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_source(source: Path, name: str, entries) -> KernelLibrary:
+    """One kernel source alone (an earlier revision or a patched copy of
+    a ``csrc/`` file), built anew into ``_build/lib{name}.so`` against
+    ``csrc/``'s headers and loaded with the C signatures of ``entries``:
+    for experiments that time two builds of a kernel in one process."""
+    target = BUILD_DIR / f"lib{name}.so"
+    t0 = time.perf_counter()
+    log = _compile([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), str(source)],
+                   target, str(source))
+    return KernelLibrary(_bind(ctypes.CDLL(str(target)), entries), target,
+                         time.perf_counter() - t0, log)
+
+
 def library() -> KernelLibrary:
     """The kernel library, built from ``csrc/`` on first use in this
     process (or loaded from ``_build/`` when a build of the same sources
@@ -138,11 +160,7 @@ def library() -> KernelLibrary:
             if not target.exists():
                 log = _build(target)
             seconds = time.perf_counter() - t0 if log is not None else 0.0
-            lib = ctypes.CDLL(str(target))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            lib = _bind(ctypes.CDLL(str(target)), _SIGNATURES)
             _LOADED.append(KernelLibrary(lib, target, seconds, log or ""))
         return _LOADED[0]
 

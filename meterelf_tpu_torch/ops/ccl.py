@@ -32,6 +32,17 @@ from .components import W
 from .launch import check_cuda, raise_on_error, stream_of
 
 
+def c_args(bits: torch.Tensor, caps: Optional[Sequence[int]],
+           okey: torch.Tensor, conv: torch.Tensor) -> tuple:
+    """The arguments of the C entries meterelf_ccl / meterelf_propagate
+    (csrc/meterelf_kernels.h): window bits [K, 64, 64] i32, the caps
+    (components.K_* when None), okey [K, 64, 64] i32 and conv [K] u8."""
+    k_label, k_outside, k_fill = (int(c) for c in caps or (
+        components.K_LABEL, components.K_OUTSIDE, components.K_FILL))
+    return (bits.data_ptr(), bits.shape[0], k_label, k_outside, k_fill,
+            okey.data_ptr(), conv.data_ptr(), stream_of(bits.device))
+
+
 def _launch(name: str, entry: str, bits: torch.Tensor,
             caps: Optional[Sequence[int]]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -39,16 +50,12 @@ def _launch(name: str, entry: str, bits: torch.Tensor,
     if tuple(bits.shape[1:]) != (W, W):
         raise ValueError(f"{name} kernel takes [K, {W}, {W}] windows, got "
                          f"{tuple(bits.shape)}")
-    k_label, k_outside, k_fill = (int(c) for c in caps or (
-        components.K_LABEL, components.K_OUTSIDE, components.K_FILL))
-    K = bits.shape[0]
     okey = torch.empty_like(bits)
-    conv = torch.empty(K, dtype=torch.uint8, device=bits.device)
-    if K:
+    conv = torch.empty(bits.shape[0], dtype=torch.uint8, device=bits.device)
+    if bits.shape[0]:
         with torch.cuda.device(bits.device):
             rc = getattr(_build.library(), entry)(
-                bits.data_ptr(), K, k_label, k_outside, k_fill,
-                okey.data_ptr(), conv.data_ptr(), stream_of(bits.device))
+                *c_args(bits, caps, okey, conv))
         raise_on_error(name, rc)
     return okey, conv.to(torch.bool)
 

@@ -309,8 +309,9 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
     JPEG decode on ``dec``'s device (K10 on compact int8 or dense i16
     frequency planes, the plain IDCT and K11 on i16 blocks, dispatched on
     dtype and shape), writes the fallback rows ``fb_packed[j]`` over row
-    ``fb_idx[j]`` for the slots with 0 <= fb_idx[j] < B (the others are
-    dropped, as JAX's mode="drop"), and decodes the [B, rh, rw] crops.
+    ``fb_idx[j]`` for the slots with -B <= fb_idx[j] < B, a negative
+    index counting from the end as in numpy (the others are dropped: the
+    scatter of JAX's mode="drop"), and decodes the [B, rh, rw] crops.
     ``pa`` is accepted for the JAX package's signature; the decoder's own
     device arrays are used. ``win`` is the CoefWindow the feed must
     match, ``pad_hw`` the crop shape (``dec.feed_pad_hw``) at which the
@@ -340,8 +341,10 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
                              f"neither layout of window {win}")
         # the slot choice runs on the host (the feed's fb_idx is numpy):
         # no device sync, and unused slots never cross to the device
+        B = packed.shape[0]
         idx = torch.as_tensor(fb_idx).cpu().to(torch.int64)
-        keep = (idx >= 0) & (idx < packed.shape[0])
+        idx = torch.where(idx < 0, idx + B, idx)
+        keep = (idx >= 0) & (idx < B)
         if bool(keep.any()):
             fb = torch.as_tensor(fb_packed)
             packed[idx[keep].to(dev)] = fb[keep.to(fb.device)].to(

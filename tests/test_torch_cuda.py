@@ -72,6 +72,60 @@ def test_windows_ccl_stats_kernels_equal_plain(case):
     assert torch.equal(km, km_r) and torch.equal(ha, ha_r)
 
 
+# caps of the CCL card tests: the defaults, small and zero caps whose
+# partial states the rescue depends on, and the rescue's own
+CCL_CAPS = [None, (1, 1, 1), (4, 2, 2), (3, 5, 0), (0, 0, 0),
+            components.RESCUE_CAPS]
+CCL_WINDOWS = ["speckled", "noise_0.05", "noise_0.2", "noise_0.35",
+               "noise_0.6", "all_masked", "no_disk", "odd_batch"]
+
+
+def _ccl_windows(name, case):
+    """Window bits [K, 64, 64] on the card: the speckled flagship windows
+    of ``case`` (K1 then K2), numpy dense noise inside the r=23 disk, an
+    all-masked window, a window whose disk bit is 0 everywhere, and a
+    batch of 7 mixed windows (one window a CTA: any count is whole)."""
+    dec, _, packed = case
+    if name == "speckled":
+        mx, my = frontend.frontend(packed, dec.param_arrays.template_u8,
+                                   dec.score_c1, dec.score_c0)[1:]
+        return windows.windows(packed, mx, my, dec.geom, dec.disk,
+                               dec.hue_shift).reshape(-1, W, W)
+    yy, xx = np.mgrid[:W, :W]
+    disk = (yy - 32) ** 2 + (xx - 32) ** 2 <= 23 ** 2
+    rng = np.random.default_rng(len(name))
+    if name.startswith("noise_"):
+        closed = rng.random((8, W, W)) < float(name[6:])
+    elif name == "all_masked":
+        closed = np.ones((1, W, W), bool)
+        disk = np.ones((W, W), bool)
+    elif name == "no_disk":
+        closed = rng.random((2, W, W)) < 0.3
+        disk = np.zeros((W, W), bool)
+    else:
+        closed = rng.random((7, W, W)) < rng.uniform(0.02, 0.6, (7, 1, 1))
+    masked = closed & disk
+    bits = masked + 2 * disk + 4 * closed.astype(np.int32)
+    return torch.as_tensor(bits.astype(np.int32)).to(dec.device)
+
+
+@pytest.mark.parametrize("caps", CCL_CAPS)
+@pytest.mark.parametrize("family", CCL_WINDOWS)
+def test_ccl_kernels_equal_plain_on_window_families(case, family, caps):
+    """K3 and K6 bit-equal to components.propagate (okey and converged)
+    under every caps set on each window family, each launch checked by a
+    synchronize."""
+    bits = _ccl_windows(family, case)
+    for kernel, pack_closed in ((ccl.ccl, True), (ccl.propagate, False)):
+        n = kernel.launches
+        got = kernel(bits, caps)
+        torch.cuda.synchronize()
+        assert kernel.launches == n + 1
+        ref = components.propagate(bits, caps, pack_closed=pack_closed)
+        assert torch.equal(got[0], ref[0]), (family, caps, pack_closed)
+        assert torch.equal(got[1], ref[1]), (family, caps, pack_closed)
+
+
 def test_propagate_and_match_kernels_equal_plain(case):
     """K6 under three caps and K8 on the flagship crops, bit-equal to
     their plain versions; K1's staging size equals its Python gate's."""

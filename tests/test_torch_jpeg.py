@@ -430,3 +430,36 @@ def test_coef_step_fallback_scatter(coef_steps):
     assert res.err[3] == ErrCode.LOAD and (np.delete(res.err, 3) == 0).all()
     direct = tdecoder.decode_numpy(crops[:2])
     np.testing.assert_array_equal(res.dial_pos[[1, 6]], direct.dial_pos)
+
+
+@pytest.mark.parametrize("slots", [(-1, -8, -9), (-7, 2, 8)])
+def test_coef_step_fallback_negative_indices(coef_steps, slots):
+    """Negative fallback indices -B <= i < 0 write row i + B, as JAX's
+    scatter with mode="drop" does; i < -B and i >= B drop (B = 8, so
+    (-1, -8, -9) writes rows 7 and 0, (-7, 2, 8) rows 1 and 2)."""
+    cam, jdecoder, jstep, tdecoder, tstep, datas = coef_steps
+    B = len(datas)
+    pad = (cam.meter_rect.height, cam.meter_rect.width)
+    jfeed = list(jio.load_coef_feed(datas, cam.meter_rect, FRAME_WH, pad))
+    tfeed = list(tio.load_coef_feed(datas, cam.meter_rect, FRAME_WH, pad))
+    crops = cam.render_crops([[9.9, 0.1, 4.5, 5.5], [2.0, 7.0, 1.0, 8.0],
+                              [3.0, 3.0, 3.0, 3.0]])
+    fb_packed = np.zeros((8,) + pad, np.int32)
+    fb_packed[:3] = tio.pack_crops(crops)
+    fb_idx = np.full(8, B, np.int32)
+    fb_idx[:3] = slots
+    for feed in (jfeed, tfeed):
+        feed[4:] = [np.ones(B, bool), fb_packed, fb_idx]
+    ref = jax.tree.map(np.asarray, jstep(jdecoder.param_arrays, *jfeed))
+    res = tstep(None, *tfeed)
+    res = type(res)(*[v.numpy() for v in res])
+    assert_port_equal(ref, res, "fallback scatter, negative indices")
+    written = [(j, i % B) for j, i in enumerate(slots) if -B <= i < B]
+    direct = tdecoder.decode_numpy(crops[[j for j, _ in written]])
+    np.testing.assert_array_equal(res.dial_pos[[r for _, r in written]],
+                                  direct.dial_pos)
+    # the frames' own readings differ from the fallback crops' there
+    plain = tstep(None, *tfeed[:4], np.ones(B, bool), fb_packed,
+                  np.full(8, B, np.int32))
+    assert not np.array_equal(
+        plain.dial_pos.numpy()[[r for _, r in written]], direct.dial_pos)
