@@ -30,7 +30,9 @@ Runs from the root of a checkout, with nothing built beforehand:
    plain version's), bounds the work those passes need, times the kernel
    through its wrapper (``ms``, as every kernel) and over launches of its
    C entry alone (``kernel_ms``), and repeats all of it on the flagship
-   crops with 1 % speckle;
+   crops with 1 % speckle; for K10 times its C entry alone too
+   (``kernel_ms``) and prints the full IDCTs and single chroma rows an
+   image its bands run beside the blocks the crop needs;
 4. drives each path with every launch count reset to 0 first: the crop
    decode (MeterDecoder(device="cuda").decode_numpy) and the coefficient
    path (make_coef_decode_fn's step) of both cameras (quad branch), the
@@ -176,6 +178,13 @@ def encode_frames(camera, pos: np.ndarray, subsampling: str = "4:2:0"):
             for f in camera.render_frames(pos.tolist())]
 
 
+def tiled_jpegs(camera, pos: np.ndarray, n_distinct: int, n: int):
+    """The JPEGs of the first n_distinct frames of pos, and the list of n
+    that tiles them (a batch)."""
+    jpegs = encode_frames(camera, pos[:n_distinct])
+    return jpegs, [jpegs[i % n_distinct] for i in range(n)]
+
+
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
@@ -268,6 +277,24 @@ def backhalf_blocks_needed(win) -> int:
               * span(max((win.ox >> 1) - 1, 0),
                      min(((win.ox + win.rw - 1) >> 1) + 1, win.cw_valid - 1)))
     return luma + 2 * chroma
+
+
+def k10_c_args(fy, fcb, fcr, qt, win, pad_hw) -> tuple:
+    """The arguments of K10's C entry meterelf_backhalf_planes
+    (csrc/meterelf_kernels.h) on the wrapper's inputs, and the output
+    tensor they write: for timing the kernel without its wrapper."""
+    import torch
+
+    from meterelf_tpu_torch.ops import jpeg_tail, jpegdec
+    from meterelf_tpu_torch.ops.launch import stream_of
+
+    geom = jpeg_tail._geom("backhalf_planes", jpegdec.backhalf_ok, win,
+                           pad_hw)
+    out = torch.empty((fy.shape[0], int(geom[8]), int(geom[9])),
+                      dtype=torch.int32, device=fy.device)
+    return (fy.data_ptr(), fcb.data_ptr(), fcr.data_ptr(),
+            int(fy.dtype == torch.int8), qt.data_ptr(), fy.shape[0],
+            geom.ctypes.data, out.data_ptr(), stream_of(fy.device)), out
 
 
 # int32 operations one CCL pass needs (the function, not what csrc/ccl.cu
@@ -439,11 +466,9 @@ def main() -> int:
         f"crops in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    flag_jpegs = encode_frames(cam, true_pos[:N_DISTINCT])
+    flag_jpegs, datas = tiled_jpegs(cam, true_pos, N_DISTINCT, B_MAIN)
     alt_jpegs = encode_frames(alt, alt_pos)
-    datas = [flag_jpegs[i % N_DISTINCT] for i in range(B_MAIN)]
-    five_jpegs = encode_frames(five, five_pos[:N_FIVE])
-    five_datas = [five_jpegs[i % N_FIVE] for i in range(B_MAIN)]
+    five_jpegs, five_datas = tiled_jpegs(five, five_pos, N_FIVE, B_MAIN)
     # the fallback batch: rows FB_444 re-encoded 4:4:4 (the coefficient
     # reader rejects them: they go to the fallback slots), rows FB_CUT cut
     # below the meter window (its general reader reads them)
@@ -657,6 +682,14 @@ def main() -> int:
         check(torch.equal(got, ref), "packed crops differ")
         results["backhalf_planes"]["ms"] = cuda_ms(
             lambda: jpeg_tail.backhalf_planes(*args), 20)
+        # the C entry alone (no wrapper checks, no allocation)
+        c_args, c_out = k10_c_args(*args)
+        entry = lib.meterelf_backhalf_planes
+        check(entry(*c_args) == 0, "C entry: launch failed")
+        torch.cuda.synchronize()
+        check(torch.equal(c_out, ref), "C entry: packed crops differ")
+        results["backhalf_planes"]["kernel_ms"] = cuda_ms(
+            lambda: entry(*c_args), 20)
         results["backhalf_planes"]["plain_ms"] = cuda_ms(
             lambda: jpegdec.backhalf_planes_to_packed(*args), 2)
         unpack = OPS_PER_BLOCK_COMPACT_UNPACK if fy.dtype == torch.int8 else 0
@@ -666,8 +699,13 @@ def main() -> int:
         nbytes = sum(t.numel() * t.element_size() for t in (fy, fcb, fcr, qt))
         results["backhalf_planes"].update(bound(
             nbytes + got.numel() * 4, ops, INT32_OPS_PER_S))
+        bands, full, single = jpeg_tail.backhalf_bands(win)
         say(f"K10 input: {tuple(fy.shape)} {fy.dtype} + 2 x "
-            f"{tuple(fcb.shape)}, output {tuple(got.shape)}")
+            f"{tuple(fcb.shape)}, output {tuple(got.shape)}; {bands} bands "
+            f"an image: {full} full 8x8 IDCTs and {single} single chroma "
+            f"rows an image, against {backhalf_blocks_needed(win)} blocks "
+            f"the crop needs; wrapper {results['backhalf_planes']['ms']} "
+            f"ms, C entry {results['backhalf_planes']['kernel_ms']} ms")
 
     def k11() -> None:
         sy, scb, scr = jpegdec.idct_planes(

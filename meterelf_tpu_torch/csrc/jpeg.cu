@@ -20,15 +20,27 @@
 // function needs (its OPS_PER_* and backhalf_blocks_needed) and the bytes
 // each kernel must move; PERF.md section 6 has the bounds. K10 reads
 // 156,672 B of compact coefficients and writes 250 KB of crops per
-// flagship image. The design: one CTA per (image, 16 output rows).
-// It stages the luma block rows under its rows and the chroma block rows
-// under them plus the one-sample halo above and below (at most 3 block
-// rows per plane) as IDCT'd u8 samples in shared memory (48 B per window
-// column), one thread per 8x8 block with the whole 2-D butterfly in
-// registers, then writes each output pixel from the staged samples. The
-// chroma halo rows are recomputed from their blocks rather than read
-// from a neighbouring CTA. The TPU kernel's int8-limb matrix-unit IDCT,
-// sublane interleaves and lane rolls exist only for Mosaic and are gone.
+// flagship image, and its operations bound it.
+//
+// K10's design: one CTA per (image, band), a band being one chroma block
+// row k of the window (window rows 16k..16k+15) that holds crop rows, so
+// no two CTAs IDCT the same block. A band stages as u8 samples in shared
+// memory (26 B a window column) the luma blocks under its crop rows and
+// the crop's columns and the chroma blocks of row k under the crop's
+// chroma columns and their one-sample halo, one thread a block with the
+// whole 2-D butterfly in registers; the two chroma halo rows 8k-1 and
+// 8k+8, where a crop pixel reads them, are single rows of the
+// neighbouring blocks (that row's entry of each column pass, then one row
+// pass: idct8_edge, bit-equal to idct8), not whole blocks. Single rows
+// start on a warp of their own so that no warp runs both. The tail maps
+// warps to output rows and lanes to window column pairs (2c, 2c+1): no
+// integer division, and the vertical 3:1 sums of chroma columns c-1, c,
+// c+1 read once a pair. The last band also writes the staging rows below
+// the crop. For the flagship window an image runs 1,536 full IDCTs and 992
+// single rows, against 2,528 full IDCTs when 16-row tiles started at the
+// crop's rows (1,568 blocks needed). The TPU kernel's int8-limb
+// matrix-unit IDCT, sublane interleaves and lane rolls exist only for
+// Mosaic and are gone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,8 +49,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileRows = 16;     // output rows per CTA
-constexpr int kStageRows = 24;    // staged rows per plane: 3 block rows
+constexpr int kBandRows = 16;     // window rows of a band: 1 chroma block row
+constexpr int kChromaRows = 10;   // staged chroma rows: the row and 2 halos
+
+// 3 runs both of K10's phases; experiments/torch_k10_ab.py --split builds
+// 1 (the IDCT alone) and 2 (the tail alone on zeros) to time them apart
+#ifndef K10_PHASES
+#define K10_PHASES 3
+#endif
 
 // jidctint.c FIX(x) at CONST_BITS = 13
 constexpr uint32_t F_0_298631336 = 2446u;
@@ -115,6 +133,15 @@ __device__ __forceinline__ void idct8(uint32_t* v, int s, int n) {
   v[7 * s] = descale(t10 - o3, n);
 }
 
+// Level shift, clamp and store of 8 IDCT outputs as u8.
+__device__ __forceinline__ void store_row(const uint32_t* v, uint8_t* dst) {
+#pragma unroll
+  for (int col = 0; col < 8; ++col) {
+    const int x = (int32_t)v[col] + 128;
+    dst[col] = (uint8_t)(x < 0 ? 0 : (x > 255 ? 255 : x));
+  }
+}
+
 // 2-D IDCT of one dequantised block c[r*8 + col] (pass 1 down the
 // columns, pass 2 along the rows, as jidctint.c), level shift and clamp,
 // written as u8 rows of dst at row stride ds.
@@ -125,11 +152,7 @@ __device__ __forceinline__ void idct_block(uint32_t* c, uint8_t* dst,
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     idct8(c + 8 * r, 1, 18);
-#pragma unroll
-    for (int col = 0; col < 8; ++col) {
-      const int v = (int32_t)c[8 * r + col] + 128;
-      dst[r * ds + col] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
-    }
+    store_row(c + 8 * r, dst + r * ds);
   }
 }
 
@@ -147,6 +170,18 @@ __device__ __forceinline__ int chroma_at(const uint8_t* C, int row0, int cs,
   const int near = 3 * a[c] + b[c];
   const int far = 3 * a[nc] + b[nc];
   return (3 * near + far + ((wx & 1) ? 7 : 8)) >> 4;
+}
+
+// Upsampled chroma at window columns 2c (even) and 2c+1 (odd) of one
+// row: chroma_at for both, with the vertical 3:1 sums of columns
+// lc = max(c-1, 0), c and rc = min(c+1, cw_valid-1) of the row a and its
+// neighbour row b read once for the pair.
+__device__ __forceinline__ void chroma_pair(const uint8_t* a,
+                                            const uint8_t* b, int c, int lc,
+                                            int rc, int& even, int& odd) {
+  const int mid = 3 * (3 * a[c] + b[c]);
+  even = (mid + 3 * a[lc] + b[lc] + 8) >> 4;
+  odd = (mid + 3 * a[rc] + b[rc] + 7) >> 4;
 }
 
 __device__ __forceinline__ int32_t ycc_packed(int y, int cb, int cr) {
@@ -206,6 +241,44 @@ __device__ __forceinline__ void load_block(const void* plane, int img,
   }
 }
 
+// Outputs 0 and 7 alone of idct8 over v[0..7] at stride s (t10 + o3 and
+// t10 - o3, descaled by n): the same uint32 expressions, restricted to
+// the terms those two outputs use, so the value is bit-equal to idct8's.
+__device__ __forceinline__ uint32_t idct8_edge(const uint32_t* v, int s,
+                                               int n, bool last) {
+  uint32_t z2 = v[2 * s], z3 = v[6 * s];
+  uint32_t z1 = (z2 + z3) * F_0_541196100;
+  const uint32_t t3 = z1 + z2 * F_0_765366865;
+  z2 = v[0];
+  z3 = v[4 * s];
+  const uint32_t e0 = (z2 + z3) << 13;
+  const uint32_t t10 = e0 + t3;
+
+  const uint32_t o0 = v[7 * s], o1 = v[5 * s], o2 = v[3 * s];
+  uint32_t o3 = v[s];
+  z1 = o0 + o3;
+  z3 = o0 + o2;
+  uint32_t z4 = o1 + o3;
+  const uint32_t z5 = (z3 + z4) * F_1_175875602;
+  o3 *= F_1_501321110;
+  z1 = (0u - z1) * F_0_899976223;
+  z4 = (0u - z4) * F_0_390180644 + z5;
+  o3 += z1 + z4;
+  return descale(last ? t10 - o3 : t10 + o3, n);
+}
+
+// Sample row 0 (last = false) or 7 (last = true) alone of a dequantised
+// block's 2-D IDCT: that row's entry of each column pass, then one row
+// pass, written as 8 u8 to dst.
+__device__ __forceinline__ void idct_edge_row(const uint32_t* c, bool last,
+                                              uint8_t* dst) {
+  uint32_t w[8];
+#pragma unroll
+  for (int col = 0; col < 8; ++col) w[col] = idct8_edge(c + col, 8, 11, last);
+  idct8(w, 1, 18);
+  store_row(w, dst);
+}
+
 template <bool kCompact>
 __global__ void __launch_bounds__(kThreads)
     backhalf_planes_kernel(const void* __restrict__ fy,
@@ -213,58 +286,127 @@ __global__ void __launch_bounds__(kThreads)
                            const void* __restrict__ fcr,
                            const uint16_t* __restrict__ qt, Geom g,
                            int32_t* __restrict__ out) {
-  extern __shared__ uint8_t stage[];   // Y [24][lw], Cb, Cr [24][lw/2]
+  // Y [16][lw]: window rows 16k..16k+15; Cb, Cr [10][lw/2]: chroma rows
+  // 8k-1 (halo), 8k..8k+7, 8k+8 (halo)
+  extern __shared__ __align__(16) uint8_t stage[];
   __shared__ uint16_t q[3 * 64];
   const int tid = threadIdx.x;
   const int img = blockIdx.y;
   const int cw = g.lw / 2, ch = g.lh / 2;
   uint8_t* sy = stage;
-  uint8_t* scb = stage + kStageRows * g.lw;
-  uint8_t* scr = scb + kStageRows * cw;
+  uint8_t* scb = stage + kBandRows * g.lw;
+  uint8_t* scr = scb + kChromaRows * cw;
 
-  const int y0 = blockIdx.x * kTileRows;
-  const int y1 = min(y0 + kTileRows, g.ph);
-  const int yk = min(y1, g.rh);          // crop rows of this tile end here
-  // first staged luma and chroma block rows (valid when y0 < yk)
-  const int lb0 = (g.oy + y0) >> 3;
-  const int clo = max(((g.oy + y0) >> 1) - 1, 0);
-  const int cb0 = clo >> 3;
-  if (y0 < yk) {
-    for (int i = tid; i < 3 * 64; i += kThreads) q[i] = qt[img * 192 + i];
-    __syncthreads();
-    const int lb1 = (g.oy + yk - 1) >> 3;
-    const int chi = min(((g.oy + yk - 1) >> 1) + 1, g.ch_valid - 1);
-    const int cb1 = chi >> 3;
-    const int nbx = g.lw / 8, nbxc = cw / 8;
-    const int nl = (lb1 - lb0 + 1) * nbx, nc = (cb1 - cb0 + 1) * nbxc;
-    for (int j = tid; j < nl + 2 * nc; j += kThreads) {
-      uint32_t c[64];
-      if (j < nl) {
-        const int br = lb0 + j / nbx, bx = j % nbx;
-        load_block<kCompact>(fy, img, g.lh, g.lw, br, bx, q, c);
-        idct_block(c, sy + (br - lb0) * 8 * g.lw + 8 * bx, g.lw);
-      } else {
-        const int k = (j - nl) % nc, p = (j - nl) / nc;
-        const int br = cb0 + k / nbxc, bx = k % nbxc;
-        load_block<kCompact>(p ? fcr : fcb, img, ch, cw, br, bx,
-                             q + 64 * (1 + p), c);
-        idct_block(c, (p ? scr : scb) + (br - cb0) * 8 * cw + 8 * bx, cw);
+  const int k = (g.oy >> 4) + blockIdx.x;   // the band's chroma block row
+  const int wy0 = max(16 * k, g.oy);          // its crop rows [wy0, wy1)
+  const int wy1 = min(16 * k + 16, g.oy + g.rh);
+  if (K10_PHASES & 1) {
+    if (wy0 < wy1 && g.rw > 0) {
+      for (int i = tid; i < 3 * 64; i += kThreads) q[i] = qt[img * 192 + i];
+      __syncthreads();
+      // luma blocks under the band's crop rows and the crop's columns;
+      // chroma blocks of row k under the crop's chroma columns and their
+      // one-sample halo; the halo rows 8k-1 and 8k+8 where a crop pixel
+      // reads them (chroma_at's clamps)
+      const int lr0 = wy0 >> 3, nlr = ((wy1 - 1) >> 3) - lr0 + 1;
+      const int lx0 = g.ox >> 3;
+      const int nlx = ((g.ox + g.rw - 1) >> 3) - lx0 + 1;
+      const int cx0 = max((g.ox >> 1) - 1, 0) >> 3;
+      const int ncx = (min(((g.ox + g.rw - 1) >> 1) + 1, g.cw_valid - 1)
+                       >> 3) - cx0 + 1;
+      const bool up = k > 0 && wy0 == 16 * k;
+      const bool down = wy1 == 16 * k + 16 && 8 * k + 8 <= g.ch_valid - 1;
+      const int nl = nlr * nlx, nfull = nl + 2 * ncx;
+      const int s0 = (nfull + 31) & ~31;   // single rows start on a warp
+      const int njobs = s0 + ((int)up + (int)down) * 2 * ncx;
+      for (int j = tid; j < njobs; j += kThreads) {
+        uint32_t c[64];
+        if (j < nfull) {
+          const void* plane;
+          int rows, cols, br, bx, ds;
+          const uint16_t* qq;
+          uint8_t* dst;
+          if (j < nl) {
+            const int second = j >= nlx;
+            br = lr0 + second;
+            bx = lx0 + j - (second ? nlx : 0);
+            plane = fy;
+            rows = g.lh;
+            cols = g.lw;
+            qq = q;
+            dst = sy + (8 * br - 16 * k) * g.lw + 8 * bx;
+            ds = g.lw;
+          } else {
+            const int jj = j - nl, p = jj >= ncx;
+            br = k;
+            bx = cx0 + jj - (p ? ncx : 0);
+            plane = p ? fcr : fcb;
+            rows = ch;
+            cols = cw;
+            qq = q + 64 * (1 + p);
+            dst = (p ? scr : scb) + cw + 8 * bx;
+            ds = cw;
+          }
+          load_block<kCompact>(plane, img, rows, cols, br, bx, qq, c);
+          idct_block(c, dst, ds);
+        } else if (j >= s0) {
+          const int jj = j - s0, second = jj >= 2 * ncx;
+          const int jh = jj - (second ? 2 * ncx : 0), p = jh >= ncx;
+          const int bx = cx0 + jh - (p ? ncx : 0);
+          const bool below = second || !up;
+          load_block<kCompact>(p ? fcr : fcb, img, ch, cw,
+                               below ? k + 1 : k - 1, bx, q + 64 * (1 + p),
+                               c);
+          idct_edge_row(c, !below,
+                        (p ? scr : scb) + (below ? 9 : 0) * cw + 8 * bx);
+        }
       }
     }
-    __syncthreads();
+  } else {   // the tail alone (experiments/torch_k10_ab.py --split)
+    for (int i = tid; i < (kBandRows + kChromaRows) * g.lw / 4;
+         i += kThreads)
+      ((uint32_t*)stage)[i] = 0;
   }
-  int32_t* o = out + (size_t)img * g.ph * g.pw;
-  const int n = (y1 - y0) * g.pw;
-  for (int i = tid; i < n; i += kThreads) {
-    const int y = y0 + i / g.pw, x = i % g.pw;
-    int32_t v = 0;
-    if (y < g.rh && x < g.rw) {
-      const int wy = g.oy + y, wx = g.ox + x;
-      v = ycc_packed(sy[(wy - 8 * lb0) * g.lw + wx],
-                     chroma_at(scb, 8 * cb0, cw, wy, wx, g),
-                     chroma_at(scr, 8 * cb0, cw, wy, wx, g));
+  __syncthreads();
+  if (!(K10_PHASES & 2)) {   // the IDCT alone: keep it with a checksum
+    if (tid < 32) {
+      uint32_t s = ((const uint32_t*)stage)[tid];
+      for (int m = 16; m; m >>= 1) s ^= __shfl_xor_sync(~0u, s, m);
+      if (tid == 0) out[(size_t)img * g.ph * g.pw + blockIdx.x] = s;
     }
-    o[(size_t)y * g.pw + x] = v;
+    return;
+  }
+  // output rows [ys, ye): the band's crop rows, and for the last band
+  // the staging rows below the crop. A warp takes one row at a time, a
+  // lane one window column pair (2c, 2c+1), which lands on output columns
+  // x = 2c - ox and x + 1 (x = -1 for the first pair of an odd ox)
+  int32_t* o = out + (size_t)img * g.ph * g.pw;
+  const int ys = max(16 * k - g.oy, 0);
+  const int ye = blockIdx.x + 1 == gridDim.x ? g.ph : wy1 - g.oy;
+  const int c0 = g.ox >> 1;
+  const int npairs = (g.pw + (g.ox & 1) + 1) >> 1;
+  for (int y = ys + (tid >> 5); y < ye; y += kThreads / 32) {
+    int32_t* orow = o + (size_t)y * g.pw;
+    const bool crop = y < g.rh;
+    const int wy = g.oy + y, r = wy >> 1;
+    const int nr = (wy & 1) ? min(r + 1, g.ch_valid - 1) : max(r - 1, 0);
+    const uint8_t* ly = sy + (wy - 16 * k) * g.lw;
+    const int ra = (r - 8 * k + 1) * cw, rb = (nr - 8 * k + 1) * cw;
+    for (int j = tid & 31; j < npairs; j += 32) {
+      const int c = c0 + j, x = 2 * c - g.ox;
+      int32_t v0 = 0, v1 = 0;
+      if (crop && x < g.rw) {
+        const int lc = max(c - 1, 0), rc = min(c + 1, g.cw_valid - 1);
+        const uint32_t yy = *(const uint16_t*)(ly + 2 * c);
+        int cb0, cb1, cr0, cr1;
+        chroma_pair(scb + ra, scb + rb, c, lc, rc, cb0, cb1);
+        chroma_pair(scr + ra, scr + rb, c, lc, rc, cr0, cr1);
+        v0 = ycc_packed(yy & 255, cb0, cr0);
+        if (x + 1 < g.rw) v1 = ycc_packed(yy >> 8, cb1, cr1);
+      }
+      if (x >= 0) orow[x] = v0;
+      if (x + 1 < g.pw) orow[x + 1] = v1;
+    }
   }
 }
 
@@ -297,10 +439,13 @@ Geom geom_from(const int32_t* a) {
   return Geom{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9]};
 }
 
-// dynamic shared memory of K10: Y rows of lw, Cb and Cr rows of lw/2
-// (ops/jpegdec.backhalf_ok admits a window when this plus the static
-// quant tables fit a block)
-int backhalf_smem_bytes(int lw) { return kStageRows * (lw + lw); }
+// dynamic shared memory of K10: 16 Y rows of lw, 10 Cb and 10 Cr rows of
+// lw/2, 26 B a window column (ops/jpegdec.backhalf_ok admits a window when
+// 48 B a column plus the static quant tables fit a block: a looser need
+// than this one)
+int backhalf_smem_bytes(int lw) {
+  return kBandRows * lw + 2 * kChromaRows * (lw / 2);
+}
 
 }  // namespace
 
@@ -311,7 +456,9 @@ extern "C" int meterelf_backhalf_planes(const void* fy, const void* fcb,
                                         void* stream) {
   const Geom g = geom_from(geom);
   const int smem = backhalf_smem_bytes(g.lw);
-  const dim3 grid((g.ph + kTileRows - 1) / kTileRows, B);
+  // one CTA a band (chroma block row) that holds crop rows
+  const int bands = g.rh > 0 ? ((g.oy + g.rh - 1) >> 4) - (g.oy >> 4) + 1 : 1;
+  const dim3 grid(bands, B);
   cudaError_t e;
   if (compact) {
     e = cudaFuncSetAttribute(backhalf_planes_kernel<true>,

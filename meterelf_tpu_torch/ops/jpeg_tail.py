@@ -95,6 +95,31 @@ def backhalf_planes(fy: torch.Tensor, fcb: torch.Tensor, fcr: torch.Tensor,
 backhalf_planes.launches = 0  # type: ignore[attr-defined]
 
 
+def backhalf_bands(win: CoefWindow) -> Tuple[int, int, int]:
+    """K10's work per image (csrc/jpeg.cu backhalf_planes_kernel): its
+    bands, one CTA each (a chroma block row k, window rows 16k..16k+15,
+    that holds crop rows), the full 8x8 IDCTs they run (the luma blocks
+    under the crop, and each band's chroma blocks of row k under the
+    crop's chroma columns and their one-sample halo), and the single
+    chroma sample rows (halo rows 8k-1 and 8k+8, where a crop pixel reads
+    them: chroma_at's clamps) they run for their halos."""
+    if win.rh <= 0:
+        return 1, 0, 0
+    k0, k1 = win.oy >> 4, (win.oy + win.rh - 1) >> 4
+    nlx = ((win.ox + win.rw - 1) >> 3) - (win.ox >> 3) + 1
+    ncx = ((min(((win.ox + win.rw - 1) >> 1) + 1, win.cw_valid - 1) >> 3)
+           - (max((win.ox >> 1) - 1, 0) >> 3) + 1)
+    full = single = 0
+    for k in range(k0, k1 + 1):
+        wy0 = max(16 * k, win.oy)
+        wy1 = min(16 * k + 16, win.oy + win.rh)
+        up = k > 0 and wy0 == 16 * k
+        down = wy1 == 16 * k + 16 and 8 * k + 8 <= win.ch_valid - 1
+        full += (((wy1 - 1) >> 3) - (wy0 >> 3) + 1) * nlx + 2 * ncx
+        single += (up + down) * 2 * ncx
+    return k1 - k0 + 1, full, single
+
+
 def upsample_color_pack(sy: torch.Tensor, scb: torch.Tensor,
                         scr: torch.Tensor, win: CoefWindow,
                         pad_hw: Optional[Tuple[int, int]] = None

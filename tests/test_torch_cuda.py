@@ -397,12 +397,20 @@ def test_wrappers_refuse_bad_inputs(case, dev):
             torch.zeros((119, 188), dtype=torch.uint8, device=dev), 0.0, 0.0)
 
 
-# (rect, frame_wh, staging): both cameras' windows, and an unaligned one
-# (crop row origin 13, plane width 80, staging larger than the window)
+# (rect, frame_wh, staging): both cameras' windows, an unaligned one
+# (crop row origin 13, plane width 80, staging larger than the window),
+# the JAX kernel's second camera geometry (oy = 14, lw = 240), crops that
+# end on the last valid chroma row (the halo row clamps) or read it as
+# the halo row below a band, and an odd crop origin (x and y)
 JPEG_WINDOWS = {
     "flagship": (synthetic.DEFAULT_CAMERA.meter_rect, (640, 480), (250, 250)),
     "alt": (synthetic.ALT_CAMERA.meter_rect, (640, 480), (200, 210)),
     "unaligned": (Rect((9, 13), (70, 72)), (128, 96), (96, 128)),
+    "oy14_lw240": (Rect((98, 158), (330, 400)), (640, 480), (248, 240)),
+    "last_chroma_row": (Rect((17, 40), (150, 96)), (160, 96), (56, 136)),
+    "halo_on_last_chroma_row": (Rect((5, 10), (60, 49)), (64, 50),
+                                (40, 56)),
+    "odd_origin": (Rect((51, 161), (290, 400)), (640, 480), (240, 240)),
 }
 
 
@@ -448,6 +456,57 @@ def test_jpeg_kernels_equal_plain(dev, name):
         assert torch.equal(got, ref), (name, hi, "blocks")
     assert jpeg_tail.backhalf_planes.launches == n0 + 3
     assert jpeg_tail.upsample_color_pack.launches == n1 + 2
+
+
+def _k10_equal_plain(dev, planes, qt, win, pad_hw):
+    """K10 on the dense planes (and their compact wire when they fit it)
+    bit-equal to its plain version; returns the launches made."""
+    feeds = [planes]
+    if all(-2048 <= p.min() and p.max() <= 2047 for p in planes):
+        feeds.append([tio.compact_planes(p) for p in planes])
+    tq = torch.as_tensor(qt).to(dev)
+    for f in feeds:
+        t = [torch.as_tensor(p).to(dev) for p in f]
+        got = jpeg_tail.backhalf_planes(*t, tq, win, pad_hw)
+        ref = jpegdec.backhalf_planes_to_packed(*t, tq, win, pad_hw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f[0].dtype
+    return len(feeds)
+
+
+@pytest.mark.parametrize("B", [1, 257])
+def test_k10_batch_sizes_equal_plain(dev, B):
+    """K10 at one image and at 257 (a grid of 16 bands x 257) on the
+    flagship window, compact and dense, bit-equal to the plain version."""
+    rect, wh, pad_hw = JPEG_WINDOWS["flagship"]
+    win = jpegdec.coef_window(rect, *wh)
+    rng = np.random.default_rng(B)
+    qt = rng.integers(1, 256, (B, 3, 64)).astype(np.uint16)
+    n0 = jpeg_tail.backhalf_planes.launches
+    n = _k10_equal_plain(dev, _planes(win, B, 2048, rng), qt, win, pad_hw)
+    assert jpeg_tail.backhalf_planes.launches == n0 + n == n0 + 2
+
+
+@pytest.mark.parametrize("fill", ["zero", "extreme"])
+@pytest.mark.parametrize("name", sorted(JPEG_WINDOWS))
+def test_k10_zero_and_extreme_coefficients(dev, name, fill):
+    """K10 bit-equal to the plain version on all-zero coefficients, and on
+    coefficients at the ends of their range with q = 255 (+-2047 on the
+    compact wire, +-32767 dense: the butterfly's sums wrap)."""
+    rect, wh, pad_hw = JPEG_WINDOWS[name]
+    win = jpegdec.coef_window(rect, *wh)
+    rng = np.random.default_rng(6)
+    B = 3
+    shapes = [p.shape for p in _planes(win, B, 1, rng)]
+    if fill == "zero":
+        qt = rng.integers(1, 256, (B, 3, 64)).astype(np.uint16)
+        sets = [[np.zeros(s, np.int16) for s in shapes]]
+    else:
+        qt = np.full((B, 3, 64), 255, np.uint16)
+        sets = [[(hi * rng.choice([-1, 1], s)).astype(np.int16)
+                 for s in shapes] for hi in (2047, 32767)]
+    for planes in sets:
+        _k10_equal_plain(dev, planes, qt, win, pad_hw)
 
 
 def test_block_branch_takes_windows_k10_refuses(dev):
