@@ -32,7 +32,10 @@ Runs from the root of a checkout, with nothing built beforehand:
    C entry alone (``kernel_ms``), and repeats all of it on the flagship
    crops with 1 % speckle; for K10 times its C entry alone too
    (``kernel_ms``) and prints the full IDCTs and single chroma rows an
-   image its bands run beside the blocks the crop needs;
+   image its bands run beside the blocks the crop needs; for K1, K2, K4,
+   K5 and K7 times the C entry alone too (``kernel_ms``; K2 also one
+   launch at a time after a read that empties L2, ``cold_ms``) and prints
+   K2's registers and shared memory and K5 - K1;
 4. drives each path with every launch count reset to 0 first: the crop
    decode (MeterDecoder(device="cuda").decode_numpy) and the coefficient
    path (make_coef_decode_fn's step) of both cameras (quad branch), the
@@ -297,6 +300,31 @@ def k10_c_args(fy, fcb, fcr, qt, win, pad_hw) -> tuple:
             geom.ctypes.data, out.data_ptr(), stream_of(fy.device)), out
 
 
+def cold_ms(fn, reps: int, flush) -> float:
+    """Mean device time of fn() with the L2 cache emptied of its data
+    (``flush``, a tensor several times the cache, read before each call:
+    it leaves clean lines), events around each call."""
+    import torch
+
+    fn()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          for _ in range(reps)]
+    for a, b in ev:
+        flush.max()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.mean([a.elapsed_time(b) for a, b in ev]))
+
+
+# fp32 operations of K2's colour chain a window pixel (unpack, max, min,
+# lightness, saturation, hue, scale, round, clamp), each IEEE division
+# counted as one operation of the function; every pixel counted, though
+# csrc/window_bits.cuh skips the saturation and hue where no lane of a
+# warp needs them: the byte time bounds K2 either way
+K2_FP32_OPS_PX = 30
+
 # int32 operations one CCL pass needs (the function, not what csrc/ccl.cu
 # executes): a label half-pass 15 a masked pixel (the 3x3 min and its
 # select 9, each of the two segmented sweeps 3); an outside half-pass 128
@@ -442,9 +470,15 @@ def main() -> int:
     lib = _build.library()
     say(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {lib.build_seconds:.1f} s) -> {lib.path.name}")
+    entry = ""
+    state = {"k2_ptxas": "ptxas: not in the build log (library built "
+                         "earlier)"}
     for line in lib.build_log.splitlines():
         if "Used" in line or "Compiling entry" in line:
             say("  ptxas:", line.strip().split("ptxas info    : ")[-1])
+        entry = line if "Compiling entry" in line else entry
+        if "Used" in line and "windows_kernel" in entry:
+            state["k2_ptxas"] = "ptxas: " + line.split("Used")[-1].strip()
     t0 = time.perf_counter()
     _build.host_jpeg()
     say(f"host JPEG readers (gcc): {time.perf_counter() - t0:.1f} s")
@@ -513,7 +547,8 @@ def main() -> int:
             failures.append(name)
             say(f"FAIL {name}:\n{traceback.format_exc()}")
 
-    state = {}
+    # read before each cold launch: 5x the L2 cache
+    state["flush"] = torch.zeros(1 << 28, dtype=torch.uint8, device=dev)
 
     # ---- host coefficient feed ----
     def host_feed() -> None:
@@ -562,6 +597,13 @@ def main() -> int:
         state["mx"], state["my"] = got[1], got[2]
         results["frontend"]["ms"] = cuda_ms(
             lambda: frontend.frontend(*args), 10)
+        c_args, c_out = frontend.c_args(*args)
+        check(lib.meterelf_frontend(*c_args) == 0, "C entry: launch failed")
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(c_out, got)),
+              "C entry differs from the wrapper")
+        results["frontend"]["kernel_ms"] = cuda_ms(
+            lambda: lib.meterelf_frontend(*c_args), 10)
         results["frontend"]["plain_ms"] = cuda_ms(
             lambda: frontend.frontend_plain(*args), 3)
         # yardstick: the correlation alone as one fp32 convolution (exact:
@@ -593,14 +635,26 @@ def main() -> int:
         check(torch.equal(got, ref), "bits differ")
         state["bits"] = got.reshape(-1, 64, 64)
         results["windows"]["ms"] = cuda_ms(lambda: win_ops.windows(*args), 20)
+        # the C entry alone: back to back (kernel_ms; the windows' pixels
+        # stay in L2) and after a read that empties L2 (cold_ms: a decode)
+        c_args, c_out = win_ops.c_args(*args)
+        check(lib.meterelf_windows(*c_args) == 0, "C entry: launch failed")
+        torch.cuda.synchronize()
+        check(torch.equal(c_out, ref), "C entry: bits differ")
+        results["windows"]["kernel_ms"] = cuda_ms(
+            lambda: lib.meterelf_windows(*c_args), 20)
+        results["windows"]["cold_ms"] = cold_ms(
+            lambda: lib.meterelf_windows(*c_args), 20, state["flush"])
         results["windows"]["plain_ms"] = cuda_ms(
             lambda: win_ops.windows_plain(*args), 5)
-        # window pixels read, bits written; ~30 fp32 ops of the HLS chain
-        # a window pixel
+        # window pixels read, bits written; K2_FP32_OPS_PX a window pixel
         px = got.numel()
         results["windows"].update(bound(
             px * 4 + px * 4 + dec.disk.numel() + 8 * packed.shape[0],
-            30 * px, FP32_OPS_PER_S))
+            K2_FP32_OPS_PX * px, FP32_OPS_PER_S))
+        say(f"K2: wrapper {results['windows']['ms']} ms, C entry "
+            f"{results['windows']['kernel_ms']} ms (L2 emptied first "
+            f"{results['windows']['cold_ms']} ms); {state['k2_ptxas']}")
 
     def ccl_case(label: str, name: str, kernel, bits) -> dict:
         """K3 (``ccl``) or K6 (``propagate``) on window bits: bit-equal to
@@ -663,6 +717,13 @@ def main() -> int:
         check(torch.equal(ha_g, ha_r), "has_any differs")
         state["keymax"] = km_g
         results["stats"]["ms"] = cuda_ms(lambda: stats.stats(okey3), 20)
+        c_args, c_out = stats.c_args(okey3)
+        check(lib.meterelf_stats(*c_args) == 0, "C entry: launch failed")
+        torch.cuda.synchronize()
+        check(torch.equal(c_out[0], km_r) and torch.equal(c_out[1], ha_r),
+              "C entry differs from the plain version")
+        results["stats"]["kernel_ms"] = cuda_ms(
+            lambda: lib.meterelf_stats(*c_args), 20)
         results["stats"]["plain_ms"] = cuda_ms(
             lambda: stats.stats_plain(okey3), 5)
         # okey3 read, keymax/has_any written; ~8 int32 ops a pixel (the
@@ -790,6 +851,16 @@ def main() -> int:
               "K5 differs from K1 then K2")
         results["frontend_windows"]["ms"] = cuda_ms(
             lambda: frontend.frontend_windows(*args), 10)
+        c_args, c_out = frontend.c_args(*args)
+        check(lib.meterelf_frontend_windows(*c_args) == 0,
+              "C entry: launch failed")
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(c_out, got)),
+              "C entry differs from the wrapper")
+        k5 = results["frontend_windows"]["kernel_ms"] = cuda_ms(
+            lambda: lib.meterelf_frontend_windows(*c_args), 10)
+        say(f"K5: C entry {k5} ms, K5 - K1 (C entries) "
+            f"{k5 - results['frontend']['kernel_ms']} ms")
         results["frontend_windows"]["plain_ms"] = cuda_ms(
             lambda: frontend.frontend_windows_plain(*args), 3)
         B, H, W = packed.shape
@@ -800,7 +871,8 @@ def main() -> int:
         # and K2's fp32 HLS work (the window pixels are re-read on chip)
         results["frontend_windows"].update(bound(
             packed.numel() * 4 + th * tw + 12 * B + px * 4 + dec.disk.numel(),
-            2 * macs, INT8_TC_OPS_PER_S, ((30 * px, FP32_OPS_PER_S),)))
+            2 * macs, INT8_TC_OPS_PER_S,
+            ((K2_FP32_OPS_PX * px, FP32_OPS_PER_S),)))
 
     def k7() -> None:
         # K6's okey of the flagship windows (the hist_pallas variant's
@@ -817,6 +889,13 @@ def main() -> int:
               "K7's keymax differs from K4's on the same windows")
         results["stats_select"]["ms"] = cuda_ms(
             lambda: stats.stats_select(okey, contrib), 20)
+        c_args, c_out = stats.c_args(okey, contrib)
+        check(lib.meterelf_stats_select(*c_args) == 0,
+              "C entry: launch failed")
+        torch.cuda.synchronize()
+        check(torch.equal(c_out, ref), "C entry differs")
+        results["stats_select"]["kernel_ms"] = cuda_ms(
+            lambda: lib.meterelf_stats_select(*c_args), 20)
         results["stats_select"]["plain_ms"] = cuda_ms(
             lambda: stats.stats_select_plain(okey, contrib), 5)
         # okey and contrib read, keymax written; 4 int32 ops a pixel (the

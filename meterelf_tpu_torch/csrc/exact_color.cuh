@@ -35,21 +35,25 @@ __device__ __forceinline__ int meterelf_lightness(int p) {
   return meterelf_sat_u8(__fmul_rn(l, 255.0f));
 }
 
-// HLS_FULL of one packed pixel with the wrapping hue shift
-__device__ __forceinline__ void meterelf_hls(int p, int hue_shift, int& ho,
-                                             int& lo, int& so) {
-  float b, g, r;
-  meterelf_unpack(p, b, g, r);
-  const float vmax = fmaxf(fmaxf(r, g), b);
-  const float vmin = fminf(fminf(r, g), b);
-  const float l = __fmul_rn(__fadd_rn(vmax, vmin), 0.5f);
-  const float diff = __fsub_rn(vmax, vmin);
-  const bool nonzero = vmax != vmin;
-  const float safe = nonzero ? diff : 1.0f;
-  float s = (l < 0.5f)
-                ? __fdiv_rn(diff, __fadd_rn(vmax, vmin))
-                : __fdiv_rn(diff, __fsub_rn(__fsub_rn(2.0f, vmax), vmin));
-  const float diff60 = __fdiv_rn(60.0f, safe);
+// S channel of HLS_FULL (0..255) from a pixel's unit-plane max, min and
+// l: the denominator is selected first, then divided once. That is the
+// same IEEE operation on the same operands as the reference's select of
+// two quotients, so a pixel makes two divisions (S, H) and not three.
+__device__ __forceinline__ int meterelf_saturation(float vmax, float vmin,
+                                                   float l) {
+  if (vmax == vmin) return 0;
+  const float den = l < 0.5f ? __fadd_rn(vmax, vmin)
+                             : __fsub_rn(__fsub_rn(2.0f, vmax), vmin);
+  return meterelf_sat_u8(
+      __fmul_rn(__fdiv_rn(__fsub_rn(vmax, vmin), den), 255.0f));
+}
+
+// H channel of HLS_FULL with the wrapping hue shift (uint8 wraparound)
+__device__ __forceinline__ int meterelf_hue(float b, float g, float r,
+                                            float vmax, float vmin,
+                                            int hue_shift) {
+  if (vmax == vmin) return hue_shift & 255;
+  const float diff60 = __fdiv_rn(60.0f, __fsub_rn(vmax, vmin));
   float h;
   if (vmax == r) {
     h = __fmul_rn(__fsub_rn(g, b), diff60);
@@ -59,12 +63,18 @@ __device__ __forceinline__ void meterelf_hls(int p, int hue_shift, int& ho,
     h = __fadd_rn(__fmul_rn(__fsub_rn(r, g), diff60), 240.0f);
   }
   if (h < 0.0f) h = __fadd_rn(h, 360.0f);
-  if (!nonzero) {
-    h = 0.0f;
-    s = 0.0f;
-  }
-  const int hs = meterelf_sat_u8(__fmul_rn(h, METERELF_HSCALE)) + hue_shift;
-  ho = ((hs % 256) + 256) % 256;  // uint8 wraparound
+  return (meterelf_sat_u8(__fmul_rn(h, METERELF_HSCALE)) + hue_shift) & 255;
+}
+
+// HLS_FULL of one packed pixel with the wrapping hue shift
+__device__ __forceinline__ void meterelf_hls(int p, int hue_shift, int& ho,
+                                             int& lo, int& so) {
+  float b, g, r;
+  meterelf_unpack(p, b, g, r);
+  const float vmax = fmaxf(fmaxf(r, g), b);
+  const float vmin = fminf(fminf(r, g), b);
+  const float l = __fmul_rn(__fadd_rn(vmax, vmin), 0.5f);
+  ho = meterelf_hue(b, g, r, vmax, vmin, hue_shift);
   lo = meterelf_sat_u8(__fmul_rn(l, 255.0f));
-  so = meterelf_sat_u8(__fmul_rn(s, 255.0f));
+  so = meterelf_saturation(vmax, vmin, l);
 }

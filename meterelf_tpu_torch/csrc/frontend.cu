@@ -37,11 +37,13 @@
 // (_frontend_windows_kernel), the METERELF_FRONTEND=merged variant: after
 // K1's correlation and argmax the same CTA reuses its shared memory for the
 // 4 dial windows at (mx + ox, my + oy), through K2's body
-// (window_bits.cuh), and writes K2's bits layout. It is specialised to 4
-// dials, as the TPU kernel is. What it saves over K1 then K2: one launch
-// and K2's second read of the window pixels (the crop is in L2 then
-// anyway); its bound is K1's operations plus K2's. The TPU kernel's
-// in-VMEM superwindow rotate and quad lane layout are not carried over.
+// (window_bits.cuh: all four at once, 4 of its 16 warps a window, 2 KB of
+// row words in the correlation's staging), and writes K2's bits layout.
+// It is specialised to 4 dials, as the TPU kernel is. What it saves over
+// K1 then K2: one launch and K2's second read of the window pixels (the
+// crop is in L2 then anyway); its bound is K1's operations plus K2's. The
+// TPU kernel's in-VMEM superwindow rotate and quad lane layout are not
+// carried over.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
@@ -136,20 +138,25 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (kWindows) {
     // every thread is past the correlation: its staging is free again
     __syncthreads();
-    winbits::Smem& sm = *reinterpret_cast<winbits::Smem*>(smem);
-    const int mx = s_mx, my = s_my;
-    for (int d = 0; d < kDials; ++d)
-      winbits::window_bits(
-          sm, img, W, mx + wg.ox[d], my + wg.oy[d], wg.cx[d], wg.cy[d],
-          wg.cr[d][0], wg.cr[d][1], wg.cr[d][2],
-          disk + (size_t)d * winbits::kPix, hue_shift,
-          bits + ((size_t)blockIdx.x * kDials + d) * winbits::kPix, kThreads);
+    // the 4 windows at once, 4 warps a window
+    constexpr int kWarps = kThreads / 32;
+    const int d = (tid >> 5) / (kWarps / kDials);
+    winbits::Win w;
+    w.W = W;
+    w.img = img + (size_t)(s_my + wg.oy[d]) * W + s_mx + wg.ox[d];
+    w.sx = winbits::sample_start(wg.cx[d]);
+    w.sy = winbits::sample_start(wg.cy[d]);
+    for (int c = 0; c < 3; ++c) w.cr[c] = wg.cr[d][c];
+    w.dk = disk + (size_t)d * winbits::kPix;
+    w.out = bits + ((size_t)blockIdx.x * kDials + d) * winbits::kPix;
+    winbits::window_bits<kWarps, kDials>(reinterpret_cast<uint64_t*>(smem),
+                                         w, hue_shift);
   }
 }
 
 int frontend_smem(int H, int W, int th, int tw, bool windows) {
   const int bytes = corr8::layout(H, W, th, tw).bytes;
-  const int win = (int)sizeof(winbits::Smem);
+  const int win = winbits::smem_bytes(kDials);
   return windows && win > bytes ? win : bytes;
 }
 

@@ -8,15 +8,20 @@
 // [0, 255], and a 3x3 close whose dilate reads 0 and erode reads 1
 // outside the window (cv2 borders; no leak between windows).
 //
-// What bounds it on the H100: almost nothing. 4096 pixels per window,
-// each a few dozen f32 ops including three IEEE divisions, and 16 KB
-// read + 16 KB written per window. The design is one CTA of 256 threads
-// per window (16 pixels each), with the H/L/S planes and the padded
-// raw/dilated masks in shared memory, so each pixel is read from device
-// memory once and each bit plane written once. The Dekker division and
-// the lane-rotated quad layout of the TPU kernel are not needed here:
-// __fdiv_rn is IEEE division, and each window is its own CTA. The window
-// body lives in window_bits.cuh, which K5 (frontend.cu) runs too.
+// What bounds it on the H100: its bytes. 4096 pixels a window, 16 KB read
+// and 16 KB written, 0.010 ms for the flagship's 1024 windows at 3.35
+// TB/s; the HLS chain (two IEEE divisions and ~60 other fp32 and int
+// instructions a pixel) comes second. The design (window_bits.cuh): each
+// warp takes the colour sample itself, converts its band of rows straight
+// into raw-mask row words with __ballot_sync (512 bytes of shared memory
+// a window, no H/L/S planes, the divisions skipped where no lane of the
+// warp passes the lightness test), and after one barrier closes the row
+// words in registers and writes one int2 a lane. kThreads = 128 (4 warps
+// of 16 rows) and one window a CTA: 1024 CTAs of ~1 KB fit the SMs in one
+// wave. The Dekker division and the lane-rotated quad layout of the TPU
+// kernel are not needed here: __fdiv_rn is IEEE division, and each window
+// is its own CTA. The window body lives in window_bits.cuh, which K5
+// (frontend.cu) runs too.
 #include <cuda_runtime.h>
 
 #include "meterelf_kernels.h"
@@ -24,7 +29,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // 4 warps of 16 rows, one window a CTA
 constexpr int kMaxDials = 8;
 
 struct WinGeom {
@@ -39,13 +44,19 @@ __global__ void __launch_bounds__(kThreads)
                    const int32_t* __restrict__ my, WinGeom g, int D,
                    const uint8_t* __restrict__ disk, int hue_shift,
                    int32_t* __restrict__ bits) {
-  __shared__ winbits::Smem sm;
-  const int d = blockIdx.x, b = blockIdx.y;
-  winbits::window_bits(sm, packed + (size_t)b * H * W, W, mx[b] + g.ox[d],
-                       my[b] + g.oy[d], g.cx[d], g.cy[d], g.cr[d][0],
-                       g.cr[d][1], g.cr[d][2],
-                       disk + (size_t)d * winbits::kPix, hue_shift,
-                       bits + ((size_t)b * D + d) * winbits::kPix, kThreads);
+  __shared__ uint64_t words[winbits::kWin];
+  // the block's window k = b * D + d
+  const int k = blockIdx.x;
+  const int b = k / D, d = k - b * D;
+  winbits::Win w;
+  w.W = W;
+  w.img = packed + ((size_t)b * H + my[b] + g.oy[d]) * W + mx[b] + g.ox[d];
+  w.sx = winbits::sample_start(g.cx[d]);
+  w.sy = winbits::sample_start(g.cy[d]);
+  for (int c = 0; c < 3; ++c) w.cr[c] = g.cr[d][c];
+  w.dk = disk + (size_t)d * winbits::kPix;
+  w.out = bits + (size_t)k * winbits::kPix;
+  winbits::window_bits<kThreads / 32, 1>(words, w, hue_shift);
 }
 
 }  // namespace
@@ -65,7 +76,7 @@ extern "C" int meterelf_windows(const int32_t* packed, int B, int H, int W,
     g.cy[d] = q[3];
     for (int c = 0; c < 3; ++c) g.cr[d][c] = q[4 + c];
   }
-  windows_kernel<<<dim3(D, B), kThreads, 0, (cudaStream_t)stream>>>(
+  windows_kernel<<<B * D, kThreads, 0, (cudaStream_t)stream>>>(
       packed, H, W, mx, my, g, D, disk, hue_shift, bits);
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,7 @@ same function; it takes exactly 4 dials, as the TPU kernel does.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -205,11 +205,9 @@ def locate(scores: torch.Tensor
 
 
 def _check_kernel_args(name: str, packed: torch.Tensor,
-                       template_u8: torch.Tensor
-                       ) -> Tuple[int, int, int, int, int]:
+                       template_u8: torch.Tensor) -> int:
     """The checks K1 and K5 share on CUDA tensors: dtypes, a template that
-    fits the crop, and K1's shared memory within a block's limit -> (B,
-    H, W, th, tw)."""
+    fits the crop, and K1's shared memory within a block's limit -> B."""
     check_cuda(name, packed, torch.int32, 3)
     check_cuda(name, template_u8, torch.uint8, 2, like=packed)
     B, H, W = packed.shape
@@ -221,7 +219,29 @@ def _check_kernel_args(name: str, packed: torch.Tensor,
         raise ValueError(
             f"crop {(H, W)} with template {(th, tw)} needs {smem} B of "
             f"shared memory, above the {SMEM_LIMIT} B a block may use")
-    return B, H, W, th, tw
+    return B
+
+
+def c_args(packed: torch.Tensor, template_u8: torch.Tensor, c1: float,
+           c0: float, geom: Optional[Geom] = None,
+           disk: Optional[torch.Tensor] = None, hue_shift: int = 0
+           ) -> Tuple[tuple, List[torch.Tensor]]:
+    """The arguments of K1's C entry meterelf_frontend (geom None) or of
+    K5's meterelf_frontend_windows (csrc/meterelf_kernels.h), and the
+    outputs they write: [max_val f32 [B], mx i32 [B], my i32 [B]], then
+    K5's bits i32 [B, 4, 64, 64]."""
+    B, H, W = packed.shape
+    dev = packed.device
+    out = [torch.empty(B, dtype=t, device=dev)
+           for t in (torch.float32, torch.int32, torch.int32)]
+    head = (packed.data_ptr(), B, H, W, template_u8.data_ptr(),
+            *template_u8.shape, float(c1), float(c0))
+    tail = tuple(t.data_ptr() for t in out)
+    if geom is None:
+        return head + tail + (stream_of(dev),), out
+    out.append(torch.empty((B, 4, WIN, WIN), dtype=torch.int32, device=dev))
+    return (head + (host_geom(geom), disk.data_ptr(), int(hue_shift)) + tail
+            + (out[3].data_ptr(), stream_of(dev))), out
 
 
 def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
@@ -230,21 +250,15 @@ def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
     """K1 wrapper -> (max_val f32 [B], mx i32 [B], my i32 [B])."""
     if packed.device.type == "cpu":
         return frontend_plain(packed, template_u8, c1, c0)
-    B, H, W, th, tw = _check_kernel_args("frontend", packed, template_u8)
-    dev = packed.device
-    max_val = torch.empty(B, dtype=torch.float32, device=dev)
-    mx = torch.empty(B, dtype=torch.int32, device=dev)
-    my = torch.empty(B, dtype=torch.int32, device=dev)
+    B = _check_kernel_args("frontend", packed, template_u8)
+    args, out = c_args(packed, template_u8, c1, c0)
     if B == 0:
-        return max_val, mx, my
-    with torch.cuda.device(dev):
-        rc = _build.library().meterelf_frontend(
-            packed.data_ptr(), B, H, W, template_u8.data_ptr(), th, tw,
-            c1, c0, max_val.data_ptr(), mx.data_ptr(), my.data_ptr(),
-            stream_of(dev))
+        return tuple(out)
+    with torch.cuda.device(packed.device):
+        rc = _build.library().meterelf_frontend(*args)
     raise_on_error("frontend", rc)
     frontend.launches += 1
-    return max_val, mx, my
+    return tuple(out)
 
 
 frontend.launches = 0  # type: ignore[attr-defined]
@@ -275,28 +289,20 @@ def frontend_windows(packed: torch.Tensor, template_u8: torch.Tensor,
     if packed.device.type == "cpu":
         return frontend_windows_plain(packed, template_u8, c1, c0, geom,
                                       disk, hue_shift)
-    B, H, W, th, tw = _check_kernel_args("frontend_windows", packed,
-                                         template_u8)
-    check_cuda("frontend_windows", disk, torch.uint8, 3, like=packed)
+    B = _check_kernel_args("frontend_windows", packed, template_u8)
+    # the kernel reads the disk two bytes at a time
+    check_cuda("frontend_windows", disk, torch.uint8, 3, like=packed,
+               align=2)
     if tuple(disk.shape) != (4, WIN, WIN):
         raise ValueError(f"disk shape {tuple(disk.shape)} != {(4, WIN, WIN)}")
-    geom_arg = host_geom(geom)
-    dev = packed.device
-    max_val = torch.empty(B, dtype=torch.float32, device=dev)
-    mx = torch.empty(B, dtype=torch.int32, device=dev)
-    my = torch.empty(B, dtype=torch.int32, device=dev)
-    bits = torch.empty((B, 4, WIN, WIN), dtype=torch.int32, device=dev)
+    args, out = c_args(packed, template_u8, c1, c0, geom, disk, hue_shift)
     if B == 0:
-        return max_val, mx, my, bits
-    with torch.cuda.device(dev):
-        rc = _build.library().meterelf_frontend_windows(
-            packed.data_ptr(), B, H, W, template_u8.data_ptr(), th, tw, c1,
-            c0, geom_arg, disk.data_ptr(), int(hue_shift),
-            max_val.data_ptr(), mx.data_ptr(), my.data_ptr(),
-            bits.data_ptr(), stream_of(dev))
+        return tuple(out)
+    with torch.cuda.device(packed.device):
+        rc = _build.library().meterelf_frontend_windows(*args)
     raise_on_error("frontend_windows", rc)
     frontend_windows.launches += 1
-    return max_val, mx, my, bits
+    return tuple(out)
 
 
 frontend_windows.launches = 0  # type: ignore[attr-defined]

@@ -7,9 +7,10 @@ import torch
 
 
 def check_cuda(kernel: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-               like: Optional[torch.Tensor] = None) -> None:
+               like: Optional[torch.Tensor] = None, align: int = 1) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` with
-    ``ndim`` dimensions (on the device of ``like`` when given)."""
+    ``ndim`` dimensions (on the device of ``like`` when given) whose data
+    starts on a multiple of ``align`` bytes (the kernel's widest load)."""
     where = f"{kernel} kernel"
     if t.device.type != "cuda":
         raise ValueError(f"{where}: tensor on {t.device}, expected CUDA")
@@ -22,6 +23,9 @@ def check_cuda(kernel: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
                          f"{ndim} dimensions")
     if not t.is_contiguous():
         raise ValueError(f"{where}: tensor is not contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{where}: tensor data at {t.data_ptr():#x} is not "
+                         f"aligned to {align} bytes")
 
 
 def stream_of(device: torch.device) -> int:

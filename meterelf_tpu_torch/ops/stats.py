@@ -9,8 +9,10 @@ keymax = max(area2*4096 + owner) over those owners, -1 when none
 (larger owner on area ties, Python's stable sorted()[-1]); has_any =
 any masked pixel. The TPU kernel's one-hot matmuls and row_spans
 restriction are matrix-unit devices and are not carried over: the CUDA
-kernel (csrc/stats.cu) builds both histograms with shared-memory
-atomics.
+kernel (csrc/stats.cu) builds both histograms as one packed counter a
+bin (area2 << 16 | bcount) with shared-memory atomics, one a run of equal
+owners across a warp, and writes has_any straight into the bool
+output.
 
 K7 ``stats_select`` ports pallas_stats.stats_select, which the JAX
 decode runs under METERELF_QUAD_STATS=hist_pallas (components._finalize):
@@ -23,7 +25,7 @@ histogram bodies cannot drift.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -76,26 +78,41 @@ def stats_plain(okey3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return keymax, has_any
 
 
+def c_args(okey: torch.Tensor, contrib: Optional[torch.Tensor] = None
+           ) -> Tuple[tuple, Union[torch.Tensor,
+                                   Tuple[torch.Tensor, torch.Tensor]]]:
+    """The arguments of K4's C entry meterelf_stats on okey3 (contrib
+    None) or of K7's meterelf_stats_select on okey and contrib
+    (csrc/meterelf_kernels.h), and the outputs they write: (keymax i32
+    [K], has_any bool [K]) or keymax."""
+    K, dev = okey.shape[0], okey.device
+    keymax = torch.empty(K, dtype=torch.int32, device=dev)
+    if contrib is None:
+        has_any = torch.empty(K, dtype=torch.bool, device=dev)
+        return (okey.data_ptr(), K, keymax.data_ptr(), has_any.data_ptr(),
+                stream_of(dev)), (keymax, has_any)
+    return (okey.data_ptr(), contrib.data_ptr(), K, keymax.data_ptr(),
+            stream_of(dev)), keymax
+
+
 def stats(okey3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 wrapper -> (keymax i32 [K], has_any bool [K])."""
     if okey3.device.type == "cpu":
         return stats_plain(okey3)
-    check_cuda("stats", okey3, torch.int32, okey3.dim())
+    # the kernel reads two pixels at a time (int2)
+    check_cuda("stats", okey3, torch.int32, okey3.dim(), align=8)
     K = okey3.shape[0]
     if okey3.numel() != K * N:
         raise ValueError(f"stats kernel takes [K, {W}, {W}] windows, got "
                          f"{tuple(okey3.shape)}")
-    keymax = torch.empty(K, dtype=torch.int32, device=okey3.device)
-    has_any = torch.empty(K, dtype=torch.uint8, device=okey3.device)
+    args, out = c_args(okey3)
     if K == 0:
-        return keymax, has_any.to(torch.bool)
+        return out
     with torch.cuda.device(okey3.device):
-        rc = _build.library().meterelf_stats(
-            okey3.data_ptr(), K, keymax.data_ptr(), has_any.data_ptr(),
-            stream_of(okey3.device))
+        rc = _build.library().meterelf_stats(*args)
     raise_on_error("stats", rc)
     stats.launches += 1
-    return keymax, has_any.to(torch.bool)
+    return out
 
 
 stats.launches = 0  # type: ignore[attr-defined]
@@ -122,21 +139,20 @@ def stats_select(okey: torch.Tensor, contrib: torch.Tensor) -> torch.Tensor:
     """K7 wrapper -> keymax i32 [K]."""
     if okey.device.type == "cpu":
         return stats_select_plain(okey, contrib)
-    check_cuda("stats_select", okey, torch.int32, okey.dim())
+    # the kernel reads two pixels of each at a time (int2)
+    check_cuda("stats_select", okey, torch.int32, okey.dim(), align=8)
     check_cuda("stats_select", contrib, torch.int32, contrib.dim(),
-               like=okey)
+               like=okey, align=8)
     K = okey.shape[0]
     if okey.numel() != K * N or contrib.numel() != K * N:
         raise ValueError(f"stats_select kernel takes [K, {W}, {W}] okey and "
                          f"contrib, got {tuple(okey.shape)} and "
                          f"{tuple(contrib.shape)}")
-    keymax = torch.empty(K, dtype=torch.int32, device=okey.device)
+    args, keymax = c_args(okey, contrib)
     if K == 0:
         return keymax
     with torch.cuda.device(okey.device):
-        rc = _build.library().meterelf_stats_select(
-            okey.data_ptr(), contrib.data_ptr(), K, keymax.data_ptr(),
-            stream_of(okey.device))
+        rc = _build.library().meterelf_stats_select(*args)
     raise_on_error("stats_select", rc)
     stats_select.launches += 1
     return keymax

@@ -92,6 +92,20 @@ def windows_plain(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
             | (closed.to(i32) << 2) | (raw.to(i32) << 3))
 
 
+def c_args(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
+           geom: Geom, disk: torch.Tensor, hue_shift: int
+           ) -> Tuple[tuple, torch.Tensor]:
+    """The arguments of K2's C entry meterelf_windows
+    (csrc/meterelf_kernels.h) on the wrapper's inputs, and the bits
+    tensor i32 [B, D, 64, 64] they write."""
+    B, H, W = packed.shape
+    bits = torch.empty((B, len(geom), WIN, WIN), dtype=torch.int32,
+                       device=packed.device)
+    return (packed.data_ptr(), B, H, W, mx.data_ptr(), my.data_ptr(),
+            host_geom(geom), len(geom), disk.data_ptr(), int(hue_shift),
+            bits.data_ptr(), stream_of(packed.device)), bits
+
+
 def windows(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
             geom: Geom, disk: torch.Tensor, hue_shift: int) -> torch.Tensor:
     """K2 wrapper -> bits i32 [B, D, 64, 64]. Every window must lie
@@ -102,8 +116,9 @@ def windows(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
     check_cuda("windows", packed, torch.int32, 3)
     check_cuda("windows", mx, torch.int32, 1, like=packed)
     check_cuda("windows", my, torch.int32, 1, like=packed)
-    check_cuda("windows", disk, torch.uint8, 3, like=packed)
-    B, H, W = packed.shape
+    # the kernel reads the disk two bytes at a time
+    check_cuda("windows", disk, torch.uint8, 3, like=packed, align=2)
+    B = packed.shape[0]
     D = len(geom)
     if not 1 <= D <= MAX_DIALS:
         raise ValueError(f"windows kernel takes 1..{MAX_DIALS} dials, got {D}")
@@ -111,16 +126,11 @@ def windows(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
         raise ValueError(f"disk shape {tuple(disk.shape)} != {(D, WIN, WIN)}")
     if mx.shape[0] != B or my.shape[0] != B:
         raise ValueError("mx/my must hold one offset per image")
-    geom_arg = host_geom(geom)
-    bits = torch.empty((B, D, WIN, WIN), dtype=torch.int32,
-                       device=packed.device)
+    args, bits = c_args(packed, mx, my, geom, disk, hue_shift)
     if B == 0:
         return bits
     with torch.cuda.device(packed.device):
-        rc = _build.library().meterelf_windows(
-            packed.data_ptr(), B, H, W, mx.data_ptr(), my.data_ptr(),
-            geom_arg, D, disk.data_ptr(), int(hue_shift), bits.data_ptr(),
-            stream_of(packed.device))
+        rc = _build.library().meterelf_windows(*args)
     raise_on_error("windows", rc)
     windows.launches += 1
     return bits

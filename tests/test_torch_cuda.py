@@ -18,6 +18,7 @@ from meterelf_tpu_torch.ops import jpegdec, match, stats, windows
 from meterelf_tpu_torch.ops.color import lightness_from_planes, unpack_planes
 from meterelf_tpu_torch.pipeline.decode import MeterDecoder, make_coef_decode_fn
 from meterelf_tpu_torch.types import Rect
+from window_families import FAMILIES, STATS_CASES, family_case, stats_cases
 
 torch.set_num_threads(2)
 
@@ -194,6 +195,98 @@ def test_variant_kernels_equal_plain(case):
     torch.cuda.synchronize()
     assert v1.cpu().numpy().tobytes() == \
         match.match_scores(L, tmpl, dec.tmean).cpu().numpy().tobytes()
+
+
+def _on(dev, *arrays):
+    return [torch.as_tensor(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("name", FAMILIES + ("mixed",))
+def test_window_kernels_equal_plain_on_families(dev, name):
+    """K2 (five dials) and K5 (four) bit-equal to their plain versions on
+    the window families of tests/window_families.py (every pixel in
+    range, none, checkerboards, raw pixels on every window edge, layers
+    that stop at each test of the colour chain, random), with the dial
+    centres at 0, 1, 2, 61, 62 and 63 and hue shifts 0, 128 and 255; K5
+    equal to K1 then K2."""
+    for D in (5, 4):
+        packed, mx, my, geom, disk = family_case(name, 3, 17 + D, D)
+        p, mxt, myt, dk = _on(dev, packed, mx, my, disk)
+        for hue in (0, 128, 255):
+            args = (p, mxt, myt, geom, dk, hue)
+            n = windows.windows.launches
+            got = windows.windows(*args)
+            torch.cuda.synchronize()
+            assert windows.windows.launches == n + 1
+            assert torch.equal(got, windows.windows_plain(*args)), (D, hue)
+    # K5: the template is image 0's lightness over its four windows, so
+    # the located offsets put the families' windows in place
+    L = lightness_from_planes(*unpack_planes(p))
+    tmpl_np = L[0, my[0]:my[0] + 128, mx[0]:mx[0] + 192].cpu().numpy() \
+        .astype(np.uint8)
+    tmpl = torch.as_tensor(tmpl_np).to(dev)
+    c1, c0 = frontend.score_constants(tmpl_np)
+    for hue in (0, 255):
+        args = (p, tmpl, c1, c0, geom, dk, hue)
+        n = frontend.frontend_windows.launches
+        got = frontend.frontend_windows(*args)
+        ref = frontend.frontend_windows_plain(*args)
+        mv, mx1, my1 = frontend.frontend(*args[:4])
+        split = (mv, mx1, my1, windows.windows(p, mx1, my1, geom, dk, hue))
+        torch.cuda.synchronize()
+        assert frontend.frontend_windows.launches == n + 1
+        assert (int(mx1[0]), int(my1[0])) == (int(mx[0]), int(my[0]))
+        for other in (ref, split):
+            assert got[0].cpu().numpy().tobytes() == \
+                other[0].cpu().numpy().tobytes()
+            for x, y in zip(got[1:], other[1:]):
+                assert torch.equal(x, y), hue
+
+
+@pytest.mark.parametrize("B", [1, 257])
+@pytest.mark.parametrize("D", range(1, 9))
+def test_windows_kernel_dials_and_batches(dev, D, B):
+    """K2 at every dial count it takes (1..8) and batches of 1 and 257
+    (one window a CTA: any B * D), on mixed window families, hue shifts
+    0, 128 and 255."""
+    packed, mx, my, geom, disk = family_case("mixed", B, 31 * D + B, D)
+    p, mxt, myt, dk = _on(dev, packed, mx, my, disk)
+    for hue in (0, 128, 255):
+        args = (p, mxt, myt, geom, dk, hue)
+        got = windows.windows(*args)
+        torch.cuda.synchronize()
+        assert got.shape == (B, D, W, W)
+        assert torch.equal(got, windows.windows_plain(*args)), hue
+
+
+@pytest.mark.parametrize("name", STATS_CASES)
+def test_stats_kernels_equal_plain_on_cases(dev, name):
+    """K4 and K7 bit-equal to their plain versions on the one-owner
+    window (worst contention; area2 and bcount at their maxima, and K7's
+    area2 at 12288 with contributions 3), the 4096-owner window, only the
+    sentinel, alternating owners, owner blocks and propagated windows,
+    each tiled to 1030 windows (more than one CTA an SM); K7's keymax
+    equal to K4's on the same windows."""
+    okey3 = stats_cases()[name]
+    okey3 = np.ascontiguousarray(np.resize(okey3, (1030, W, W)))
+    okey = ((okey3 >> 3) * 4 + (okey3 & 3)).astype(np.int32)
+    ok3, ok = _on(dev, okey3, okey)
+    contrib = stats.cell_contrib(ok >> 2)
+    high = contrib | 3 | 4 * torch.as_tensor(
+        np.random.default_rng(1).integers(0, 2, okey.shape).astype(np.int32)
+    ).to(dev)
+    n4, n7 = stats.stats.launches, stats.stats_select.launches
+    km, ha = stats.stats(ok3)
+    km_r, ha_r = stats.stats_plain(ok3)
+    assert ha.dtype == torch.bool
+    assert torch.equal(km, km_r) and torch.equal(ha, ha_r)
+    for c in (contrib, high):
+        km7 = stats.stats_select(ok, c)
+        assert torch.equal(km7, stats.stats_select_plain(ok, c))
+    assert torch.equal(stats.stats_select(ok, contrib), km)
+    torch.cuda.synchronize()
+    assert (stats.stats.launches, stats.stats_select.launches) == \
+        (n4 + 1, n7 + 3)
 
 
 # (H, W, th, tw) of the tensor-core correlation's card tests, for K1/K5
@@ -395,6 +488,44 @@ def test_wrappers_refuse_bad_inputs(case, dev):
         frontend.frontend(
             torch.zeros((1, 1024, 1024), dtype=torch.int32, device=dev),
             torch.zeros((119, 188), dtype=torch.uint8, device=dev), 0.0, 0.0)
+
+
+def test_wrappers_refuse_misaligned_inputs(case, dev):
+    """A contiguous view whose data does not start on the kernel's widest
+    load (an int2 of okey3, okey and contrib in K4/K7, two disk bytes in
+    K2/K5) is refused with a ValueError before any launch, and the card
+    stays usable."""
+    dec, _, packed = case
+
+    def shifted(like: torch.Tensor) -> torch.Tensor:
+        flat = torch.empty(like.numel() + 1, dtype=like.dtype, device=dev)
+        view = flat[1:].view(like.shape)
+        view.copy_(like)
+        return view
+
+    okey = torch.full((4, W, W), 4096 << 3, dtype=torch.int32, device=dev)
+    contrib = torch.zeros_like(okey)
+    with pytest.raises(ValueError, match="aligned"):
+        stats.stats(shifted(okey))
+    with pytest.raises(ValueError, match="aligned"):
+        stats.stats_select(shifted(okey), contrib)
+    with pytest.raises(ValueError, match="aligned"):
+        stats.stats_select(okey, shifted(contrib))
+    tmpl = dec.param_arrays.template_u8
+    mx, my = frontend.frontend(packed, tmpl, dec.score_c1, dec.score_c0)[1:]
+    disk = shifted(dec.disk)
+    assert disk.is_contiguous() and disk.data_ptr() % 2
+    with pytest.raises(ValueError, match="aligned"):
+        windows.windows(packed, mx, my, dec.geom, disk, dec.hue_shift)
+    with pytest.raises(ValueError, match="aligned"):
+        frontend.frontend_windows(packed, tmpl, dec.score_c1, dec.score_c0,
+                                  dec.geom, disk, dec.hue_shift)
+    # the aligned inputs still launch and agree with the plain versions
+    got = stats.stats(okey)
+    ref = stats.stats_plain(okey)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    args = (packed, mx, my, dec.geom, dec.disk, dec.hue_shift)
+    assert torch.equal(windows.windows(*args), windows.windows_plain(*args))
 
 
 # (rect, frame_wh, staging): both cameras' windows, an unaligned one
