@@ -31,11 +31,16 @@ Runs from the root of a checkout, with nothing built beforehand:
    through its wrapper (``ms``, as every kernel) and over launches of its
    C entry alone (``kernel_ms``), and repeats all of it on the flagship
    crops with 1 % speckle; for K10 times its C entry alone too
-   (``kernel_ms``) and prints the full IDCTs and single chroma rows an
-   image its bands run beside the blocks the crop needs; for K1, K2, K4,
-   K5 and K7 times the C entry alone too (``kernel_ms``; K2 also one
-   launch at a time after a read that empties L2, ``cold_ms``) and prints
-   K2's registers and shared memory and K5 - K1;
+   (``kernel_ms``; one launch at a time after a read that empties L2,
+   ``cold_ms``) and prints the full IDCTs and single chroma rows an
+   image its bands run beside the blocks the crop needs; holds K11 to its
+   plain version also on random planes of the windows only it takes
+   (``K11_WINDOWS``: past the valid chroma rows, past the valid chroma
+   columns, 4,960 columns wide), times its C entry (``kernel_ms``,
+   ``cold_ms``) and the whole block branch beside its plain IDCT; for
+   K1, K2, K4, K5 and K7 times the C entry alone too (``kernel_ms``; K2
+   also one launch at a time after a read that empties L2, ``cold_ms``)
+   and prints K2's registers and shared memory and K5 - K1;
 4. drives each path with every launch count reset to 0 first: the crop
    decode (MeterDecoder(device="cuda").decode_numpy) and the coefficient
    path (make_coef_decode_fn's step) of both cameras (quad branch), the
@@ -282,22 +287,41 @@ def backhalf_blocks_needed(win) -> int:
     return luma + 2 * chroma
 
 
-def k10_c_args(fy, fcb, fcr, qt, win, pad_hw) -> tuple:
-    """The arguments of K10's C entry meterelf_backhalf_planes
-    (csrc/meterelf_kernels.h) on the wrapper's inputs, and the output
-    tensor they write: for timing the kernel without its wrapper."""
+# K11 windows that K10 refuses (ops/jpegdec.backhalf_ok), as (rect (x0,
+# y0, x1, y1), frame_wh, staging or None for the bare crop): a crop past
+# the frame's valid chroma rows (frame 470 rows high, crop to row 476: the
+# rows below chroma row 90 read it as their down neighbour), one past the
+# valid chroma columns (frame 470 wide, crop to column 476), and a window
+# 4,960 columns wide (too wide for K10's shared memory; 20 column tiles,
+# staging rows and columns past the crop, pw = 2 mod 4)
+K11_WINDOWS = {
+    "past_chroma_rows": ((50, 300, 300, 476), (640, 470), None),
+    "past_chroma_cols": ((300, 50, 476, 300), (470, 640), (252, 178)),
+    "wide": ((18, 10, 4974, 70), (4976, 80), (64, 4958)),
+}
+
+
+def k11_window(name: str):
+    """K11_WINDOWS[name] as (CoefWindow, staging)."""
+    from meterelf_tpu_torch.ops import jpegdec
+    from meterelf_tpu_torch.types import Rect
+
+    (x0, y0, x1, y1), wh, pad_hw = K11_WINDOWS[name]
+    win = jpegdec.coef_window(Rect((x0, y0), (x1, y1)), *wh)
+    return win, pad_hw or (win.rh, win.rw)
+
+
+def k11_random_planes(win, B: int, rng, dev, fill=None) -> list:
+    """Spatial u8 planes for K11 on ``dev``: sy [B, lh, lw], scb and scr
+    [B, lh/2, lw/2], uniform from ``rng``, or all ``fill``."""
     import torch
 
-    from meterelf_tpu_torch.ops import jpeg_tail, jpegdec
-    from meterelf_tpu_torch.ops.launch import stream_of
-
-    geom = jpeg_tail._geom("backhalf_planes", jpegdec.backhalf_ok, win,
-                           pad_hw)
-    out = torch.empty((fy.shape[0], int(geom[8]), int(geom[9])),
-                      dtype=torch.int32, device=fy.device)
-    return (fy.data_ptr(), fcb.data_ptr(), fcr.data_ptr(),
-            int(fy.dtype == torch.int8), qt.data_ptr(), fy.shape[0],
-            geom.ctypes.data, out.data_ptr(), stream_of(fy.device)), out
+    lh, lw = 8 * win.lbh, 8 * win.lbw
+    shapes = ((B, lh, lw), (B, lh // 2, lw // 2), (B, lh // 2, lw // 2))
+    return [torch.as_tensor(
+        np.full(s, fill, np.uint8) if fill is not None
+        else rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
+        for s in shapes]
 
 
 def cold_ms(fn, reps: int, flush) -> float:
@@ -743,14 +767,17 @@ def main() -> int:
         check(torch.equal(got, ref), "packed crops differ")
         results["backhalf_planes"]["ms"] = cuda_ms(
             lambda: jpeg_tail.backhalf_planes(*args), 20)
-        # the C entry alone (no wrapper checks, no allocation)
-        c_args, c_out = k10_c_args(*args)
+        # the C entry alone (no wrapper checks, no allocation): back to
+        # back and after a read that empties L2 (cold_ms: a decode)
+        c_args, c_out = jpeg_tail.backhalf_c_args(*args)
         entry = lib.meterelf_backhalf_planes
         check(entry(*c_args) == 0, "C entry: launch failed")
         torch.cuda.synchronize()
         check(torch.equal(c_out, ref), "C entry: packed crops differ")
         results["backhalf_planes"]["kernel_ms"] = cuda_ms(
             lambda: entry(*c_args), 20)
+        results["backhalf_planes"]["cold_ms"] = cold_ms(
+            lambda: entry(*c_args), 20, state["flush"])
         results["backhalf_planes"]["plain_ms"] = cuda_ms(
             lambda: jpegdec.backhalf_planes_to_packed(*args), 2)
         unpack = OPS_PER_BLOCK_COMPACT_UNPACK if fy.dtype == torch.int8 else 0
@@ -766,11 +793,13 @@ def main() -> int:
             f"an image: {full} full 8x8 IDCTs and {single} single chroma "
             f"rows an image, against {backhalf_blocks_needed(win)} blocks "
             f"the crop needs; wrapper {results['backhalf_planes']['ms']} "
-            f"ms, C entry {results['backhalf_planes']['kernel_ms']} ms")
+            f"ms, C entry {results['backhalf_planes']['kernel_ms']} ms "
+            f"(L2 emptied first {results['backhalf_planes']['cold_ms']} "
+            "ms)")
 
     def k11() -> None:
-        sy, scb, scr = jpegdec.idct_planes(
-            *(torch.as_tensor(a).to(dev) for a in state["block"][:4]), win)
+        blocks = [torch.as_tensor(a).to(dev) for a in state["block"][:4]]
+        sy, scb, scr = jpegdec.idct_planes(*blocks, win)
         args = (sy, scb, scr, win, pad_hw)
         got = jpeg_tail.upsample_color_pack(*args)
         ref = jpegdec.tail_to_packed(*args)
@@ -782,14 +811,46 @@ def main() -> int:
                                             pad_hw)
         check(torch.equal(got, k10_out),
               "block branch (plain IDCT + K11) differs from K10")
+        # the windows only K11 takes, on random planes
+        rng = np.random.default_rng(11)
+        for name in K11_WINDOWS:
+            kwin, kpad = k11_window(name)
+            check(not jpegdec.backhalf_ok(kwin, kpad),
+                  f"{name}: K10 takes the window")
+            planes = k11_random_planes(kwin, 4, rng, dev)
+            check(torch.equal(
+                jpeg_tail.upsample_color_pack(*planes, kwin, kpad),
+                jpegdec.tail_to_packed(*planes, kwin, kpad)),
+                f"{name}: packed crops differ")
         results["upsample_color_pack"]["ms"] = cuda_ms(
             lambda: jpeg_tail.upsample_color_pack(*args), 20)
+        # the C entry alone: back to back (kernel_ms; the planes stay in
+        # L2) and after a read that empties L2 (cold_ms: a decode)
+        c_args, c_out = jpeg_tail.upsample_c_args(*args)
+        entry = lib.meterelf_upsample_color_pack
+        check(entry(*c_args) == 0, "C entry: launch failed")
+        torch.cuda.synchronize()
+        check(torch.equal(c_out, ref), "C entry: packed crops differ")
+        results["upsample_color_pack"]["kernel_ms"] = cuda_ms(
+            lambda: entry(*c_args), 20)
+        results["upsample_color_pack"]["cold_ms"] = cold_ms(
+            lambda: entry(*c_args), 20, state["flush"])
         results["upsample_color_pack"]["plain_ms"] = cuda_ms(
             lambda: jpegdec.tail_to_packed(*args), 5)
         nbytes = sum(t.numel() for t in (sy, scb, scr)) + got.numel() * 4
         results["upsample_color_pack"].update(bound(
             nbytes, sy.shape[0] * win.rh * win.rw * OPS_PER_PIXEL_TAIL,
             INT32_OPS_PER_S))
+        # the whole block branch, and its plain-torch IDCT alone
+        branch_ms = cuda_ms(
+            lambda: jpeg_tail.backhalf_blocks(*blocks, win, pad_hw), 5)
+        idct_ms = cuda_ms(lambda: jpegdec.idct_planes(*blocks, win), 5)
+        r = results["upsample_color_pack"]
+        say(f"K11: wrapper {r['ms']} ms, C entry {r['kernel_ms']} ms (L2 "
+            f"emptied first {r['cold_ms']} ms); equal to plain on the "
+            f"flagship and {', '.join(K11_WINDOWS)}; block branch "
+            f"(backhalf_blocks) {branch_ms} ms = plain IDCT (idct_planes) "
+            f"{idct_ms} ms + K11")
 
     def k6() -> None:
         # the general branch's windows: FIVE_DIAL_CAMERA at B_MAIN, K1 + K2

@@ -48,8 +48,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from chip_smoke import (B_ALT, B_MAIN, FEED_THREADS, FRAME_WH,  # noqa: E402
-                        N_DISTINCT, cuda_ms, encode_frames, k10_c_args,
-                        render, tiled_jpegs)
+                        N_DISTINCT, cuda_ms, encode_frames, render,
+                        tiled_jpegs)
 
 ENTRY = "meterelf_backhalf_planes"
 REPS = 20
@@ -190,7 +190,7 @@ def main() -> int:
     loaded = _build._LOADED
 
     def c_call(lib, planes, win, pad_hw):
-        a, out = k10_c_args(*planes, win, pad_hw)
+        a, out = jpeg_tail.backhalf_c_args(*planes, win, pad_hw)
         fn = getattr(lib, ENTRY)
         return (lambda: fn(*a)), out
 

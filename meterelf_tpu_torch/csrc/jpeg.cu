@@ -41,6 +41,31 @@
 // crop's rows (1,568 blocks needed). The TPU kernel's int8-limb
 // matrix-unit IDCT, sublane interleaves and lane rolls exist only for
 // Mosaic and are gone.
+//
+// K11 reads 69,632 B of u8 planes and writes 250 KB of crops per flagship
+// image: by the count of chip_smoke.py its bytes bound it, the write
+// most; on the card its integer instructions take longer (PERF.md
+// section 6). Its design: one CTA per (image, band, column tile), a band
+// being window rows 32k..32k+31 (the rows 2r and 2r+1, which share the
+// near chroma row r, fall in one band) and a tile 256 output columns, so
+// the staging stays 27,904 B whatever the window's width; no integer
+// division. Staging, every global load of the CTA issued before its first
+// shared store: a warp per window row (4 a warp), a lane per 8 chroma
+// columns (8-byte loads of the near and neighbour rows of both planes)
+// makes the vertical 3:1 sums of the row over the tile's chroma columns
+// and their one-column halo, Cb and Cr packed in the halves of a word,
+// and a lane per 8 luma columns copies the row's luma; one lane makes, in
+// a slot of its own, the sums of the far column cw_valid-1, which every
+// column past it reads as its right neighbour (jdsample.c's clamp at the
+// image edge) wherever the tile lies. The neighbour row is read where it
+// lies, so a crop row past the valid chroma rows reads row ch_valid-1
+// however far above the band. Then a warp per output row and a lane per
+// 4 output columns from the row's first 16-byte boundary (a head of 0-3
+// and a tail of 0-3 pixels apart): the luma as two aligned words and a
+// funnel shift, the horizontal 3:1 of both planes in one word operation a
+// pixel, the colour of each of the 4 pixels (ycc_packed, as K10), one
+// 16-byte store. Rows and columns of the staging shape outside the crop
+// are written as zeros in the same pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,6 +76,20 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBandRows = 16;     // window rows of a band: 1 chroma block row
 constexpr int kChromaRows = 10;   // staged chroma rows: the row and 2 halos
+constexpr int kTailShift = 5;     // K11: a band is 32 window rows
+constexpr int kTailRows = 1 << kTailShift;
+constexpr int kTileCols = 256;    // K11: output columns of a tile (64 quads)
+// K11: staged chroma columns of a window row, in words: at most 144 (the
+// tile's 131 and their halo, from a multiple of 8, in groups of 8) then
+// the far slot
+constexpr int kFarSlot = 144;
+constexpr int kSlotPitch = 148;
+// K11: staged luma bytes of a window row: at most 34 words of 8 (the
+// tile's 260 columns from a multiple of 8), and room for a quad's second
+// word past the last
+constexpr int kLumaPitch = 280;
+constexpr uint32_t kEven = 0x00080008u;   // jdsample.c rounding, both halves
+constexpr uint32_t kOdd = 0x00070007u;
 
 // 3 runs both of K10's phases; experiments/torch_k10_ab.py --split builds
 // 1 (the IDCT alone) and 2 (the tail alone on zeros) to time them apart
@@ -156,26 +195,12 @@ __device__ __forceinline__ void idct_block(uint32_t* c, uint8_t* dst,
   }
 }
 
-// Upsampled chroma at window pixel (wy, wx): the jdsample.c triangle
-// filter, vertical 3:1 then horizontal 3:1 with +8/+7 by column parity,
-// neighbours clamped at the image edge (ch_valid, cw_valid). C holds
-// chroma rows from row0 on, at row stride cs.
-__device__ __forceinline__ int chroma_at(const uint8_t* C, int row0, int cs,
-                                         int wy, int wx, const Geom& g) {
-  const int r = wy >> 1, c = wx >> 1;
-  const int nr = (wy & 1) ? min(r + 1, g.ch_valid - 1) : max(r - 1, 0);
-  const int nc = (wx & 1) ? min(c + 1, g.cw_valid - 1) : max(c - 1, 0);
-  const uint8_t* a = C + (r - row0) * cs;
-  const uint8_t* b = C + (nr - row0) * cs;
-  const int near = 3 * a[c] + b[c];
-  const int far = 3 * a[nc] + b[nc];
-  return (3 * near + far + ((wx & 1) ? 7 : 8)) >> 4;
-}
-
 // Upsampled chroma at window columns 2c (even) and 2c+1 (odd) of one
-// row: chroma_at for both, with the vertical 3:1 sums of columns
-// lc = max(c-1, 0), c and rc = min(c+1, cw_valid-1) of the row a and its
-// neighbour row b read once for the pair.
+// row: the jdsample.c triangle filter, vertical 3:1 then horizontal 3:1
+// with +8/+7 by column parity, neighbours clamped at the image edge
+// (ch_valid, cw_valid), the vertical 3:1 sums of columns lc = max(c-1, 0),
+// c and rc = min(c+1, cw_valid-1) of the row a and its neighbour row b
+// read once for the pair.
 __device__ __forceinline__ void chroma_pair(const uint8_t* a,
                                             const uint8_t* b, int c, int lc,
                                             int rc, int& even, int& odd) {
@@ -307,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
       // luma blocks under the band's crop rows and the crop's columns;
       // chroma blocks of row k under the crop's chroma columns and their
       // one-sample halo; the halo rows 8k-1 and 8k+8 where a crop pixel
-      // reads them (chroma_at's clamps)
+      // reads them (the filter's clamps)
       const int lr0 = wy0 >> 3, nlr = ((wy1 - 1) >> 3) - lr0 + 1;
       const int lx0 = g.ox >> 3;
       const int nlx = ((g.ox + g.rw - 1) >> 3) - lx0 + 1;
@@ -410,28 +435,208 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The vertical 3:1 sums 3 * near + neighbour of 4 chroma columns, each
+// as one word: Cb's in the low half, Cr's in the high half (at most
+// 1,020). a, b: Cb's near and neighbour rows' 4 samples; c, d: Cr's.
+__device__ __forceinline__ uint4 vsums4(uint32_t a, uint32_t b, uint32_t c,
+                                        uint32_t d) {
+  const uint32_t cb01 = 3 * __byte_perm(a, 0, 0x4140)
+                        + __byte_perm(b, 0, 0x4140);
+  const uint32_t cb23 = 3 * __byte_perm(a, 0, 0x4342)
+                        + __byte_perm(b, 0, 0x4342);
+  const uint32_t cr01 = 3 * __byte_perm(c, 0, 0x4140)
+                        + __byte_perm(d, 0, 0x4140);
+  const uint32_t cr23 = 3 * __byte_perm(c, 0, 0x4342)
+                        + __byte_perm(d, 0, 0x4342);
+  return make_uint4(__byte_perm(cb01, cr01, 0x5410),
+                    __byte_perm(cb01, cr01, 0x7632),
+                    __byte_perm(cb23, cr23, 0x5410),
+                    __byte_perm(cb23, cr23, 0x7632));
+}
+
+// One pixel from luma y and the packed vertical sums of its chroma column
+// (mid) and of its neighbour column (side: the left one for an even
+// window column, bias kEven; the right one for an odd, kOdd): the
+// horizontal 3:1 of both planes in one word (each half stays below 4,096,
+// so no carry crosses), then colour.
+__device__ __forceinline__ int32_t tail_px(uint32_t y, uint32_t mid,
+                                           uint32_t side, uint32_t bias) {
+  const uint32_t t = 3 * mid + side + bias;
+  return ycc_packed((int)y, (int)((t >> 4) & 255), (int)(t >> 20));
+}
+
+// The pixel of luma y at window column wx of a crop row: v holds the
+// row's packed sums from chroma column c0 on, the far column's in slot
+// kFarSlot.
+__device__ __forceinline__ int32_t tail_pixel(const uint32_t* v, uint32_t y,
+                                              int wx, int c0, int cw_valid) {
+  const int c = wx >> 1, m = c - c0;
+  if (wx & 1)
+    return tail_px(y, v[m], v[c + 1 < cw_valid ? m + 1 : kFarSlot], kOdd);
+  return tail_px(y, v[m], v[max(m - 1, 0)], kEven);
+}
+
+// Window columns wx..wx+3 of a crop row, all inside the crop, wx & 1 == P:
+// the luma as two aligned words of the staged row (lw from luma column l0
+// on, l0 a multiple of 8) and a funnel shift, the packed sums of the (up
+// to) five chroma columns they read, four pixels.
+template <int P>
+__device__ __forceinline__ int4 tail_quad(const uint32_t* v,
+                                          const uint8_t* lw, int l0, int wx,
+                                          int c0, int cw_valid) {
+  const int o = wx - l0, s = o & 3;
+  const uint32_t* l32 = (const uint32_t*)(lw + o - s);
+  const uint32_t lum = __funnelshift_r(l32[0], l32[1], 8 * s);
+  const int c = wx >> 1, m = c - c0;
+  const uint32_t m0 = v[m], m1 = v[m + 1];
+  const uint32_t r0 = v[c + 1 < cw_valid ? m + 1 : kFarSlot];
+  const uint32_t r1 = v[c + 2 < cw_valid ? m + 2 : kFarSlot];
+  const uint32_t y0 = lum & 255, y1 = (lum >> 8) & 255;
+  const uint32_t y2 = (lum >> 16) & 255, y3 = lum >> 24;
+  if (P == 0)   // columns 2c, 2c+1, 2c+2, 2c+3
+    return make_int4(tail_px(y0, m0, v[max(m - 1, 0)], kEven),
+                     tail_px(y1, m0, r0, kOdd), tail_px(y2, m1, m0, kEven),
+                     tail_px(y3, m1, r1, kOdd));
+  const uint32_t m2 = v[m + 2];   // columns 2c+1, 2c+2, 2c+3, 2c+4
+  return make_int4(tail_px(y0, m0, r0, kOdd), tail_px(y1, m1, m0, kEven),
+                   tail_px(y2, m1, r1, kOdd), tail_px(y3, m2, m1, kEven));
+}
+
+// 8 bytes at p, 4-byte aligned, 8-byte aligned when a8; when half, the
+// row ends after the first 4 (a row of 4 mod 8 samples, never a8) and the
+// last 4 read as zeros.
+__device__ __forceinline__ uint2 load8(const uint8_t* p, bool a8,
+                                       bool half) {
+  if (a8) return *(const uint2*)p;
+  return make_uint2(*(const uint32_t*)p,
+                    half ? 0u : *(const uint32_t*)(p + 4));
+}
+
+// One CTA per (image blockIdx.x, band blockIdx.y, column tile blockIdx.z).
 __global__ void __launch_bounds__(kThreads)
     upsample_color_pack_kernel(const uint8_t* __restrict__ y,
                                const uint8_t* __restrict__ cb,
-                               const uint8_t* __restrict__ cr, int B,
-                               Geom g, int32_t* __restrict__ out) {
-  const size_t per = (size_t)g.ph * g.pw;
-  const size_t n = per * B;
-  const int cw = g.lw / 2;
-  const size_t cplane = (size_t)(g.lh / 2) * cw;
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * kThreads) {
-    const int img = (int)(i / per);
-    const int rem = (int)(i % per);
-    const int oy = rem / g.pw, ox = rem % g.pw;
-    int32_t v = 0;
-    if (oy < g.rh && ox < g.rw) {
-      const int wy = g.oy + oy, wx = g.ox + ox;
-      v = ycc_packed(y[(size_t)img * g.lh * g.lw + (size_t)wy * g.lw + wx],
-                     chroma_at(cb + img * cplane, 0, cw, wy, wx, g),
-                     chroma_at(cr + img * cplane, 0, cw, wy, wx, g));
+                               const uint8_t* __restrict__ cr, Geom g,
+                               int32_t* __restrict__ out) {
+  __shared__ __align__(16) uint32_t sv[kTailRows][kSlotPitch];
+  __shared__ __align__(16) uint8_t sl[kTailRows][kLumaPitch];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int img = blockIdx.x, t = blockIdx.z;
+  // the band: window rows [w0, w0 + 32), output rows [ys, ye), crop rows
+  // [ys, yc)
+  const int w0 = ((g.oy >> kTailShift) + blockIdx.y) << kTailShift;
+  const int ys = max(w0 - g.oy, 0);
+  const int ye = min(w0 + kTailRows - g.oy, g.ph);
+  const int yc = min(ye, g.rh);
+  const int cw = g.lw >> 1;
+  const size_t cplane = (size_t)(g.lh >> 1) * cw;
+  const uint8_t* pcb = cb + img * cplane;
+  const uint8_t* pcr = cr + img * cplane;
+
+  // the tile's crop columns [x0, x1] (a row's quads start at its head,
+  // 0-3, so a tile's pixels reach 3 columns past 256 t + 255); their
+  // chroma columns and halo [c0, c1] and luma columns from l0, c0 and l0
+  // multiples of 8
+  const int x0 = kTileCols * t;
+  const int x1 = min(x0 + kTileCols + 3, g.rw - 1);
+  const int c0 = max(((g.ox + x0) >> 1) - 1, 0) & ~7;
+  const int c1 = min(((g.ox + x1) >> 1) + 1, cw - 1);
+  const int groups = x0 <= x1 ? ((c1 - c0) >> 3) + 1 : 0;
+  const int l0 = (g.ox + x0) & ~7;
+  const int words = x0 <= x1 ? ((g.ox + x1 - l0) >> 3) + 1 : 0;
+  const bool a8 = (cw & 7) == 0;   // chroma rows 8-byte aligned
+
+  // every global load of the CTA first, then the shared stores: a warp per
+  // crop row (rows ys + warp + 8 i), a lane per 8 chroma columns (lane
+  // `groups` takes the far column) and per 8 luma columns (words lane and
+  // lane + 32)
+  uint2 cs[kTailRows / 8][4], ls[kTailRows / 8][2];
+#pragma unroll
+  for (int i = 0; i < kTailRows / 8; ++i) {
+    const int yy = ys + warp + 8 * i;
+    if (yy >= yc) continue;
+    const int wy = g.oy + yy, r = wy >> 1;
+    const int nr = (wy & 1) ? min(r + 1, g.ch_valid - 1) : max(r - 1, 0);
+    const uint8_t* rows[4] = {pcb + r * cw, pcb + nr * cw, pcr + r * cw,
+                              pcr + nr * cw};
+    if (lane < groups) {
+      const int c = c0 + 8 * lane;
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        cs[i][p] = load8(rows[p] + c, a8, c + 4 >= cw);
+    } else if (lane == groups) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        cs[i][p] = make_uint2(rows[p][g.cw_valid - 1], 0u);
     }
-    out[i] = v;
+    const uint8_t* ly = y + ((size_t)img * g.lh + wy) * g.lw + l0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (lane + 32 * h < words)
+        ls[i][h] = *(const uint2*)(ly + 8 * (lane + 32 * h));
+  }
+#pragma unroll
+  for (int i = 0; i < kTailRows / 8; ++i) {
+    const int yy = ys + warp + 8 * i;
+    if (yy >= yc) continue;
+    uint32_t* v = sv[g.oy + yy - w0];
+    if (lane < groups) {
+      ((uint4*)v)[2 * lane] = vsums4(cs[i][0].x, cs[i][1].x, cs[i][2].x,
+                                     cs[i][3].x);
+      ((uint4*)v)[2 * lane + 1] = vsums4(cs[i][0].y, cs[i][1].y, cs[i][2].y,
+                                         cs[i][3].y);
+    } else if (lane == groups) {
+      v[kFarSlot] = vsums4(cs[i][0].x, cs[i][1].x, cs[i][2].x, cs[i][3].x).x;
+    }
+    uint8_t* l = sl[g.oy + yy - w0];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (lane + 32 * h < words) ((uint2*)l)[lane + 32 * h] = ls[i][h];
+  }
+  __syncthreads();
+
+  // a warp per output row; the row's groups of 4 columns start at its
+  // first 16-byte boundary: the head [0, head) is group -1 (tile 0), the
+  // tail [head + 4 nq, pw) group nq, quads the groups between; tile t
+  // takes groups 64 t .. 64 t + 63, a lane one group in 32 of those that
+  // hold pixels (flagship: 62 quads and a head or a tail, 2 a lane)
+  for (int yy = ys + warp; yy < ye; yy += kThreads / 32) {
+    const size_t e0 = ((size_t)img * g.ph + yy) * g.pw;
+    int32_t* orow = out + e0;
+    const int head = (int)((0 - e0) & 3);
+    const int nq = (g.pw - head) >> 2;
+    const int jb = 64 * t - (t == 0 && head > 0);
+    const int je = min(64 * t + 63, ((g.pw - head) & 3) ? nq : nq - 1);
+    const bool crop = yy < g.rh;
+    const int row = crop ? g.oy + yy - w0 : 0;
+    const uint32_t* v = sv[row];
+    const uint8_t* lrow = sl[row];
+    const bool odd = (g.ox + head) & 1;
+    for (int j = jb + lane; j <= je; j += 32) {
+      const int x = head + 4 * j;
+      if (j >= 0 && j < nq) {
+        int4 q = make_int4(0, 0, 0, 0);
+        if (crop && x + 3 < g.rw) {
+          q = odd ? tail_quad<1>(v, lrow, l0, g.ox + x, c0, g.cw_valid)
+                  : tail_quad<0>(v, lrow, l0, g.ox + x, c0, g.cw_valid);
+        } else if (crop && x < g.rw) {   // the crop's last 1-3 columns
+          const int wx = g.ox + x, o = wx - l0;
+          q.x = tail_pixel(v, lrow[o], wx, c0, g.cw_valid);
+          if (x + 1 < g.rw)
+            q.y = tail_pixel(v, lrow[o + 1], wx + 1, c0, g.cw_valid);
+          if (x + 2 < g.rw)
+            q.z = tail_pixel(v, lrow[o + 2], wx + 2, c0, g.cw_valid);
+        }
+        *(int4*)(orow + x) = q;
+      } else {
+        for (int xx = max(x, 0); xx < min(x + 4, g.pw); ++xx) {
+          const int wx = g.ox + xx;
+          orow[xx] = crop && xx < g.rw
+                         ? tail_pixel(v, lrow[wx - l0], wx, c0, g.cw_valid)
+                         : 0;
+        }
+      }
+    }
   }
 }
 
@@ -486,9 +691,13 @@ extern "C" int meterelf_upsample_color_pack(const uint8_t* y,
                                             const int32_t* geom,
                                             int32_t* out, void* stream) {
   const Geom g = geom_from(geom);
-  const size_t n = (size_t)B * g.ph * g.pw;
-  const int blocks = (int)((n + kThreads - 1) / kThreads);
-  upsample_color_pack_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      y, cb, cr, B, g, out);
+  if (B == 0 || g.ph <= 0 || g.pw <= 0) return 0;
+  // bands of window rows 32k..32k+31 that hold staging rows; tiles of 256
+  // output columns (the last may hold only a row's tail)
+  const int bands =
+      ((g.oy + g.ph - 1) >> kTailShift) - (g.oy >> kTailShift) + 1;
+  const dim3 grid(B, bands, g.pw / kTileCols + 1);
+  upsample_color_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      y, cb, cr, g, out);
   return (int)cudaGetLastError();
 }

@@ -17,10 +17,13 @@ upsample_color_pack (K11). Both write [B, PH, PW] packed-BGR i32 crops
   i32 wrap; torch has no int32 matrix product on CUDA), then K11.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel (csrc/jpeg.cu) or raises.
+launches its kernel (csrc/jpeg.cu) or raises. ``backhalf_c_args`` and
+``upsample_c_args`` give a kernel's C-entry arguments, to time it
+without its wrapper.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -54,6 +57,22 @@ def _check_shape(kernel: str, t: torch.Tensor, shape: Tuple[int, ...]
         raise ValueError(f"{kernel} kernel: tensor not 16-byte aligned")
 
 
+def backhalf_c_args(fy: torch.Tensor, fcb: torch.Tensor, fcr: torch.Tensor,
+                    qt: torch.Tensor, win: CoefWindow,
+                    pad_hw: Optional[Tuple[int, int]] = None
+                    ) -> Tuple[tuple, torch.Tensor]:
+    """The arguments of K10's C entry meterelf_backhalf_planes
+    (csrc/meterelf_kernels.h) on the wrapper's inputs, and the output
+    tensor i32 [B, PH, PW] they write."""
+    geom = _geom("backhalf_planes", jpegdec.backhalf_ok, win, pad_hw)
+    out = torch.empty((fy.shape[0], int(geom[8]), int(geom[9])),
+                      dtype=torch.int32, device=fy.device)
+    return (fy.data_ptr(), fcb.data_ptr(), fcr.data_ptr(),
+            int(fy.dtype == torch.int8), qt.data_ptr(), fy.shape[0],
+            geom.ctypes.data_as(ctypes.c_void_p), out.data_ptr(),
+            stream_of(fy.device)), out
+
+
 def backhalf_planes(fy: torch.Tensor, fcb: torch.Tensor, fcr: torch.Tensor,
                     qt: torch.Tensor, win: CoefWindow,
                     pad_hw: Optional[Tuple[int, int]] = None
@@ -64,7 +83,6 @@ def backhalf_planes(fy: torch.Tensor, fcb: torch.Tensor, fcr: torch.Tensor,
     if fy.device.type == "cpu":
         return jpegdec.backhalf_planes_to_packed(fy, fcb, fcr, qt, win,
                                                  pad_hw)
-    geom = _geom("backhalf_planes", jpegdec.backhalf_ok, win, pad_hw)
     compact = fy.dtype == torch.int8
     dtype = torch.int8 if compact else torch.int16
     B = fy.shape[0]
@@ -76,17 +94,12 @@ def backhalf_planes(fy: torch.Tensor, fcb: torch.Tensor, fcr: torch.Tensor,
         _check_shape("backhalf_planes", t, shape)
     check_cuda("backhalf_planes", qt, torch.uint16, 3, like=fy)
     _check_shape("backhalf_planes", qt, (B, 3, 64))
-    dev = fy.device
-    out = torch.empty((B, int(geom[8]), int(geom[9])), dtype=torch.int32,
-                      device=dev)
+    args, out = backhalf_c_args(fy, fcb, fcr, qt, win, pad_hw)
     if B == 0:
         return out
     lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.meterelf_backhalf_planes(
-            fy.data_ptr(), fcb.data_ptr(), fcr.data_ptr(), int(compact),
-            qt.data_ptr(), B, geom.ctypes.data, out.data_ptr(),
-            stream_of(dev))
+    with torch.cuda.device(fy.device):
+        rc = lib.meterelf_backhalf_planes(*args)
     raise_on_error("backhalf_planes", rc)
     backhalf_planes.launches += 1
     return out
@@ -102,7 +115,7 @@ def backhalf_bands(win: CoefWindow) -> Tuple[int, int, int]:
     under the crop, and each band's chroma blocks of row k under the
     crop's chroma columns and their one-sample halo), and the single
     chroma sample rows (halo rows 8k-1 and 8k+8, where a crop pixel reads
-    them: chroma_at's clamps) they run for their halos."""
+    them: the filter's clamps) they run for their halos."""
     if win.rh <= 0:
         return 1, 0, 0
     k0, k1 = win.oy >> 4, (win.oy + win.rh - 1) >> 4
@@ -120,6 +133,21 @@ def backhalf_bands(win: CoefWindow) -> Tuple[int, int, int]:
     return k1 - k0 + 1, full, single
 
 
+def upsample_c_args(sy: torch.Tensor, scb: torch.Tensor, scr: torch.Tensor,
+                    win: CoefWindow,
+                    pad_hw: Optional[Tuple[int, int]] = None
+                    ) -> Tuple[tuple, torch.Tensor]:
+    """The arguments of K11's C entry meterelf_upsample_color_pack
+    (csrc/meterelf_kernels.h) on the wrapper's inputs, and the output
+    tensor i32 [B, PH, PW] they write."""
+    geom = _geom("upsample_color_pack", jpegdec.tail_ok, win, pad_hw)
+    out = torch.empty((sy.shape[0], int(geom[8]), int(geom[9])),
+                      dtype=torch.int32, device=sy.device)
+    return (sy.data_ptr(), scb.data_ptr(), scr.data_ptr(), sy.shape[0],
+            geom.ctypes.data_as(ctypes.c_void_p), out.data_ptr(),
+            stream_of(sy.device)), out
+
+
 def upsample_color_pack(sy: torch.Tensor, scb: torch.Tensor,
                         scr: torch.Tensor, win: CoefWindow,
                         pad_hw: Optional[Tuple[int, int]] = None
@@ -128,23 +156,18 @@ def upsample_color_pack(sy: torch.Tensor, scb: torch.Tensor,
     [B, lh/2, lw/2] -> [B, PH, PW] i32."""
     if sy.device.type == "cpu":
         return jpegdec.tail_to_packed(sy, scb, scr, win, pad_hw)
-    geom = _geom("upsample_color_pack", jpegdec.tail_ok, win, pad_hw)
     B = sy.shape[0]
     lh, lw = 8 * win.lbh, 8 * win.lbw
     for t, shape in ((sy, (B, lh, lw)), (scb, (B, lh // 2, lw // 2)),
                      (scr, (B, lh // 2, lw // 2))):
         check_cuda("upsample_color_pack", t, torch.uint8, 3, like=sy)
         _check_shape("upsample_color_pack", t, shape)
-    dev = sy.device
-    out = torch.empty((B, int(geom[8]), int(geom[9])), dtype=torch.int32,
-                      device=dev)
+    args, out = upsample_c_args(sy, scb, scr, win, pad_hw)
     if B == 0:
         return out
     lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.meterelf_upsample_color_pack(
-            sy.data_ptr(), scb.data_ptr(), scr.data_ptr(), B,
-            geom.ctypes.data, out.data_ptr(), stream_of(dev))
+    with torch.cuda.device(sy.device):
+        rc = lib.meterelf_upsample_color_pack(*args)
     raise_on_error("upsample_color_pack", rc)
     upsample_color_pack.launches += 1
     return out

@@ -18,6 +18,7 @@ from meterelf_tpu_torch.ops import jpegdec, match, stats, windows
 from meterelf_tpu_torch.ops.color import lightness_from_planes, unpack_planes
 from meterelf_tpu_torch.pipeline.decode import MeterDecoder, make_coef_decode_fn
 from meterelf_tpu_torch.types import Rect
+from jpeg_windows import JPEG_WINDOWS, K11_ALL, k11_random_planes
 from window_families import FAMILIES, STATS_CASES, family_case, stats_cases
 
 torch.set_num_threads(2)
@@ -528,23 +529,6 @@ def test_wrappers_refuse_misaligned_inputs(case, dev):
     assert torch.equal(windows.windows(*args), windows.windows_plain(*args))
 
 
-# (rect, frame_wh, staging): both cameras' windows, an unaligned one
-# (crop row origin 13, plane width 80, staging larger than the window),
-# the JAX kernel's second camera geometry (oy = 14, lw = 240), crops that
-# end on the last valid chroma row (the halo row clamps) or read it as
-# the halo row below a band, and an odd crop origin (x and y)
-JPEG_WINDOWS = {
-    "flagship": (synthetic.DEFAULT_CAMERA.meter_rect, (640, 480), (250, 250)),
-    "alt": (synthetic.ALT_CAMERA.meter_rect, (640, 480), (200, 210)),
-    "unaligned": (Rect((9, 13), (70, 72)), (128, 96), (96, 128)),
-    "oy14_lw240": (Rect((98, 158), (330, 400)), (640, 480), (248, 240)),
-    "last_chroma_row": (Rect((17, 40), (150, 96)), (160, 96), (56, 136)),
-    "halo_on_last_chroma_row": (Rect((5, 10), (60, 49)), (64, 50),
-                                (40, 56)),
-    "odd_origin": (Rect((51, 161), (290, 400)), (640, 480), (240, 240)),
-}
-
-
 def _planes(win, B, hi, rng):
     lh, lw = 8 * win.lbh, 8 * win.lbw
     return [rng.integers(-hi, hi, (B, r, c)).astype(np.int16)
@@ -699,3 +683,44 @@ def test_jpeg_wrappers_refuse_bad_inputs(dev):
         jpeg_tail.backhalf_planes(fy, fc, fc, qt.to(torch.int32), win)
     with pytest.raises(ValueError):      # chroma plane of the wrong shape
         jpeg_tail.backhalf_planes(fy, fy, fy, qt, win)
+
+
+def _k11_equal_plain(dev, win, pad_hw, B, rng, fill=None):
+    """K11 on u8 planes (uniform from rng, or all ``fill``) bit-equal to
+    its plain version through the wrapper and through its C entry."""
+    planes = k11_random_planes(win, B, rng, dev, fill)
+    ref = jpegdec.tail_to_packed(*planes, win, pad_hw)
+    n0 = jpeg_tail.upsample_color_pack.launches
+    got = jpeg_tail.upsample_color_pack(*planes, win, pad_hw)
+    args, out = jpeg_tail.upsample_c_args(*planes, win, pad_hw)
+    assert _build.library().meterelf_upsample_color_pack(*args) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), (win, pad_hw, B, fill)
+    assert torch.equal(out, ref), (win, pad_hw, B, fill)
+    assert jpeg_tail.upsample_color_pack.launches == n0 + 1
+
+
+@pytest.mark.parametrize("name", sorted(K11_ALL))
+def test_k11_equals_plain_on_windows(dev, name):
+    """K11 bit-equal to tail_to_packed on random u8 planes and on all-0
+    and all-255 planes, on every K11 window: both cameras, JPEG_WINDOWS,
+    the windows K10 refuses (past the valid chroma rows, past the valid
+    chroma columns, 4,960 columns wide, the far clamps outside a tile),
+    staging widths of every residue mod 4, an odd ox, a pad past the
+    crop."""
+    win, pad_hw = K11_ALL[name]
+    assert jpegdec.tail_ok(win, pad_hw)
+    rng = np.random.default_rng(sum(map(ord, name)))
+    B = 2 if win.lbw > 64 else 5
+    for fill in (None, 0, 255):
+        _k11_equal_plain(dev, win, pad_hw, B, rng, fill)
+
+
+@pytest.mark.parametrize("B", [1, 257])
+@pytest.mark.parametrize("name", ["flagship", "past_chroma_rows",
+                                  "past_chroma_cols", "odd_ox_odd_pw"])
+def test_k11_batch_sizes_equal_plain(dev, name, B):
+    """K11 at one image and at 257 (flagship: a grid of 257 x 16 bands)
+    bit-equal to its plain version."""
+    win, pad_hw = K11_ALL[name]
+    _k11_equal_plain(dev, win, pad_hw, B, np.random.default_rng(B))
