@@ -63,7 +63,17 @@ Runs from the root of a checkout, with nothing built beforehand:
    with fallback frames, and the device time of a steady batch of the
    quad, coefficient, general, scorer-only and merged + hist_pallas paths
    by kernel (torch.profiler) with the device busy share;
-6. prints a JSON line of per-kernel results (launches from the
+6. runs the CLI (``python3 -m meterelf_tpu_torch``) on the card over the
+   ``write_params`` directories of the flagship and ALT: 256 distinct
+   flagship and 64 ALT JPEG files and one of each error kind
+   (CLI_ERRORS), at the CLI's default batch; the same files in process
+   through ``get_meter_values`` (K1-K4 launched and no other kernel,
+   readings within 0.1, images/s over the batches after the first,
+   exact and fast); the CPU on a subset of every kind, exact,
+   METERELF_EXACT=0 and DEBUG=1 (overlays written), byte-equal to the
+   card; prints the CLI's process wall, its start-up alone and the
+   OpenCV-exact match val's host time;
+7. prints a JSON line of per-kernel results (launches from the
    coefficient path; K6's from the general branch, K8's from the
    scorer-only branch, K5's and K7's from the merged + hist_pallas crop
    decode, K9's from match_scores_v1), the card, then, only if every
@@ -91,11 +101,27 @@ FB_444 = tuple(range(1, 16, 2))   # feed rows re-encoded 4:4:4 (fallback)
 FB_CUT = (2, 6)   # feed rows truncated below the meter window
 N_CPU_CHECK = 16  # rows compared with the CPU decode
 POS_TOL = 0.1     # reading vs rendered position (dial units)
-ANGLE_TOL = 1e-9  # f64 dial positions, card vs CPU (reduction order)
+ANGLE_TOL = 1e-9  # f64 dial positions, card vs CPU (one order of sums)
 QUALITY = 92      # JPEG quality of the encoded frames
 FRAME_WH = (640, 480)
 FEED_THREADS = 8  # host entropy-decode threads
 DEVICE = "cuda:0"
+CLI_BATCH = 64    # get_meter_values' batch in process (the CLI's default)
+CLI_CPU = 10      # flagship files the CLI reads again on the CPU
+# the CPU runs of the CLI: a batch that holds the subset, and 2 threads
+# each, as 4 run at once beside the card's
+CLI_CPU_ENV = {"METERELF_DEVICE": "cpu", "METERELF_BATCH_SIZE": "16",
+               "OMP_NUM_THREADS": "2"}
+CLI_DEBUG = 8     # OK files the CLI reads again under DEBUG=1
+# the CLI phase's error files: name -> what its line must say
+CLI_ERRORS = {
+    "stub": "UNKNOWN Cannot determine angle of a dial",
+    "blind": "UNKNOWN Cannot find needle contours of a dial",
+    "zeros": "UNKNOWN Dials not found (match val = 0.0)",
+    "noise": "UNKNOWN Dials not found (match val = ",
+    "garbage": "UNKNOWN Unable to load image",
+    "missing": "UNKNOWN Unable to load image",
+}
 
 # Rates of the bounds (NVIDIA H100 SXM at 700 W): HBM3 and the dense int8
 # tensor-core and fp32 peaks of NVIDIA's H100 SXM specification. int32:
@@ -193,6 +219,61 @@ def tiled_jpegs(camera, pos: np.ndarray, n_distinct: int, n: int):
     return jpegs, [jpegs[i % n_distinct] for i in range(n)]
 
 
+def write_cli_files(camera, jpegs, d: str) -> list:
+    """The JPEG files of the CLI phase in directory d: ``jpegs`` as
+    f000.jpg, ... then the error files of CLI_ERRORS (a stubbed dial, a
+    blind dial, an all-zero frame, dark noise, garbage bytes, a missing
+    path), all frames encoded at QUALITY by the port's encoder."""
+    from meterelf_tpu_torch.synthetic import blind_dial, encode_jpeg
+
+    rng = np.random.default_rng(17)
+    off = (30, 40)
+    stub = camera.render_frame([1.0, 3.0, 5.0, 7.0], offset=off,
+                               stub_dials=(1,))
+    frames = {"stub": stub, "blind": blind_dial(stub, camera, off, 1),
+              "zeros": np.zeros_like(stub),
+              "noise": rng.integers(0, 64, stub.shape, np.uint8)}
+    blobs = [(f"f{i:03d}.jpg", data) for i, data in enumerate(jpegs)]
+    blobs += [(f"{k}.jpg", encode_jpeg(f, QUALITY))
+              for k, f in frames.items()]
+    blobs.append(("garbage.jpg", rng.integers(0, 256, 4000, np.uint8)
+                  .tobytes()))
+    files = []
+    for name, data in blobs:
+        files.append(os.path.join(d, name))
+        with open(files[-1], "wb") as fp:
+            fp.write(data)
+    return files + [os.path.join(d, "missing.jpg")]
+
+
+def start_cli(yml: str, files: list, **env: str) -> subprocess.Popen:
+    """Start ``python3 -m meterelf_tpu_torch yml files...`` from the
+    checkout, the CLI's knobs cleared and then set from ``env``."""
+    e = {k: v for k, v in os.environ.items()
+         if k != "DEBUG" and not k.startswith("METERELF_")}
+    e.update(PYTHONPATH=ROOT, **env)
+    return subprocess.Popen(
+        [sys.executable, "-m", "meterelf_tpu_torch", yml, *files], env=e,
+        cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def cli_lines(proc, label: str) -> list:
+    """The stdout lines of a finished CLI process; fails on a non-zero
+    exit."""
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0,
+          f"cli {label} exited {proc.returncode}: {err[-3000:]}")
+    return out.splitlines()
+
+
+def first_difference(a: list, b: list) -> str:
+    """The first line where two outputs differ, for a failure message."""
+    for x, y in zip(a, b):
+        if x != y:
+            return f": {x!r} != {y!r}"
+    return f": {len(a)} lines != {len(b)}"
+
+
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
@@ -212,8 +293,8 @@ def to_numpy(res):
 
 def compare_results(gpu, cpu, label: str) -> None:
     """Decode results of the card vs the CPU plain versions: discrete
-    fields exact, match_val bitwise, dial positions within ANGLE_TOL
-    (f64 sums in another order), value digits exact."""
+    fields exact, match_val bitwise, dial positions within ANGLE_TOL,
+    value digits exact."""
     for f in ("err", "first_bad_dial", "unreadable_bits", "match_x",
               "match_y", "readable", "converged"):
         if not np.array_equal(getattr(gpu, f), getattr(cpu, f)):
@@ -1378,6 +1459,185 @@ def main() -> int:
         profile_ms("variant merged + hist_pallas decode",
                    lambda: variants[("merged", "hist_pallas")](packed))
 
+    def cli_run() -> None:
+        """The port's CLI on the card: the flagship (256 JPEG files and
+        the error files of CLI_ERRORS) and ALT (64 and the same error
+        kinds) through ``python3 -m meterelf_tpu_torch`` at its default
+        batch (64), timed with and without files; the same files in
+        process through get_meter_values (launch counts, steady
+        images/s, readings against the rendered positions, exact and
+        fast); the CPU (METERELF_DEVICE=cpu) on a subset of every kind,
+        exact, METERELF_EXACT=0 and DEBUG=1, equal to the card byte for
+        byte."""
+        import shutil
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        from meterelf_tpu_torch import api, cli
+
+        tmp = tempfile.mkdtemp(prefix="meterelf_cli_")
+        procs = []
+        try:
+            t = time.perf_counter()
+            yml = cam.write_params(os.path.join(tmp, "flagship"))
+            alt_yml = alt.write_params(os.path.join(tmp, "alt"))
+            with ThreadPoolExecutor(FEED_THREADS) as pool:
+                rest = list(pool.map(
+                    lambda p: encode_frames(cam, p[None])[0],
+                    true_pos[N_DISTINCT:]))
+            files = write_cli_files(cam, list(flag_jpegs) + rest,
+                                    os.path.dirname(yml))
+            alt_files = write_cli_files(alt, alt_jpegs,
+                                        os.path.dirname(alt_yml))
+            n_frames = len(true_pos)
+            names = cam.make_params().dial_names
+            say(f"cli: {len(files)} flagship and {len(alt_files)} ALT files "
+                f"written in {time.perf_counter() - t:.1f} s")
+
+            # in process: launches, steady images/s, readings
+            def records(path, fns, exact, label):
+                reset(all_kernels)
+                dec_ = MeterDecoder(api.load_params(path), exact=exact,
+                                    device=dev)
+                stamps, recs = [], []
+                for rec in api.get_meter_values(path, fns, decoder=dec_,
+                                                batch_size=CLI_BATCH):
+                    recs.append(rec)
+                    stamps.append(time.perf_counter())
+                # the flagship batches after the first; the error files
+                # make a batch of their own (n_frames % CLI_BATCH == 0)
+                steady = ((n_frames - CLI_BATCH)
+                          / (stamps[n_frames - 1] - stamps[CLI_BATCH - 1]))
+                launches = counts(all_kernels)
+                say(f"cli {label}: get_meter_values over {len(fns)} files, "
+                    f"batch {CLI_BATCH}: {steady:.0f} images/s over the "
+                    f"flagship batches after the first; the "
+                    f"{len(fns) - n_frames} error files "
+                    f"{stamps[-1] - stamps[n_frames - 1]:.3f} s; launches "
+                    f"{launches}")
+                check(all(launches[fn.__name__] > 0 for fn in crop_kernels)
+                      and sum(launches.values()) == sum(
+                          launches[fn.__name__] for fn in crop_kernels),
+                      f"cli {label}: K1-K4 (and only they) must launch")
+                return recs, steady
+
+            recs, steady = {}, {}
+            for exact in (True, False):
+                label = "exact" if exact else "fast"
+                recs[exact], steady[exact] = records(yml, files, exact,
+                                                     label)
+                check(all(r.error is None for r in recs[exact][:n_frames]),
+                      f"cli {label}: a flagship frame did not read")
+                pos = np.array([[r.meter_values[n] for n in names]
+                                for r in recs[exact][:n_frames]])
+                e = circ_err(pos, true_pos).max()
+                say(f"cli {label}: max reading error {e:.4f} "
+                    f"(limit {POS_TOL})")
+                check(e < POS_TOL, f"cli {label}: reading error {e}")
+            want = [cli.format_result(r) for r in recs[True]]
+            for (name, msg), line in zip(CLI_ERRORS.items(),
+                                         want[n_frames:]):
+                check(msg in line, f"cli: {name}.jpg printed {line!r}")
+
+            # the card, timed alone; then the start-up alone (no files:
+            # imports, params, the decoder on the card)
+            t = time.perf_counter()
+            card_lines = cli_lines(start_cli(yml, files), "card")
+            wall = time.perf_counter() - t
+            t = time.perf_counter()
+            check(cli_lines(start_cli(yml, []), "start-up") == [],
+                  "cli: output without files")
+            startup = time.perf_counter() - t
+            params = api.load_params(yml)
+            params.arrays()
+            t = time.perf_counter()
+            for f, line in zip(files[n_frames:], card_lines[n_frames:]):
+                if "Dials not found" in line:
+                    api._parity_match_val(f, params)
+            cvdft_s = time.perf_counter() - t
+            check(card_lines == want, "cli: card stdout != get_meter_values"
+                  + first_difference(card_lines, want))
+
+            # the rest at once: fast mode on the card; the CPU subset
+            # exact and fast; DEBUG=1 on OK files, card and CPU; ALT
+            subset = files[:CLI_CPU] + files[n_frames:]
+            alt_subset = alt_files[:4] + alt_files[len(alt_jpegs):]
+            ok_files = files[:CLI_DEBUG]
+            dbg = os.path.join(tmp, "debug")
+            runs = {
+                "card fast": (yml, files, {"METERELF_EXACT": "0"}),
+                "cpu": (yml, subset, CLI_CPU_ENV),
+                "cpu fast": (yml, subset, {**CLI_CPU_ENV,
+                                           "METERELF_EXACT": "0"}),
+                "card debug": (yml, ok_files, {
+                    "DEBUG": "1", "METERELF_DEBUG_DIR": dbg + "_card"}),
+                "cpu debug": (yml, ok_files, {
+                    **CLI_CPU_ENV, "DEBUG": "1",
+                    "METERELF_DEBUG_DIR": dbg + "_cpu"}),
+                "alt card": (alt_yml, alt_files, {}),
+                "alt cpu": (alt_yml, alt_subset, CLI_CPU_ENV),
+            }
+            t = time.perf_counter()
+            for label, (path, fns, env) in runs.items():
+                procs.append((label, start_cli(path, fns, **env)))
+            out = {label: cli_lines(p, label) for label, p in procs}
+            rest_wall = time.perf_counter() - t
+            by_file = dict(zip(files, card_lines))
+            cpu_want = [by_file[f] for f in subset]
+            check(out["cpu"] == cpu_want, "cli: CPU stdout != card stdout "
+                  "on the subset" + first_difference(out["cpu"], cpu_want))
+            fast_want = [cli.format_result(r) for r in recs[False]]
+            check(out["card fast"] == fast_want,
+                  "cli: fast card stdout != get_meter_values(exact=False)"
+                  + first_difference(out["card fast"], fast_want))
+            fast_by_file = dict(zip(files, out["card fast"]))
+            cpu_want = [fast_by_file[f] for f in subset]
+            check(out["cpu fast"] == cpu_want,
+                  "cli: fast CPU stdout != fast card stdout on the subset"
+                  + first_difference(out["cpu fast"], cpu_want))
+            debug_want = [cli.format_result(r, True)
+                          for r in recs[True][:CLI_DEBUG]]
+            check(out["card debug"] == debug_want,
+                  "cli: DEBUG card stdout != the records with their dicts"
+                  + first_difference(out["card debug"], debug_want))
+            check(out["cpu debug"] == out["card debug"],
+                  "cli: DEBUG CPU stdout != DEBUG card stdout"
+                  + first_difference(out["cpu debug"], out["card debug"]))
+            for d in (dbg + "_card", dbg + "_cpu"):
+                made = sorted(os.listdir(d))
+                check(made == sorted(os.path.basename(f)[:-4] + "_debug.png"
+                                     for f in ok_files),
+                      f"cli: DEBUG overlays {made}")
+            alt_by_file = dict(zip(alt_files, out["alt card"]))
+            alt_want = [alt_by_file[f] for f in alt_subset]
+            check(out["alt cpu"] == alt_want, "cli: ALT CPU stdout != ALT "
+                  "card stdout" + first_difference(out["alt cpu"], alt_want))
+            alt_lines = out["alt card"]
+            check(not any("UNKNOWN" in x for x in alt_lines[:len(alt_jpegs)]),
+                  "cli: an ALT frame did not read")
+            for (name, msg), line in zip(CLI_ERRORS.items(),
+                                         alt_lines[len(alt_jpegs):]):
+                check(msg.split(" (match")[0] in line,
+                      f"cli: ALT {name}.jpg printed {line!r}")
+            say(f"cli: python3 -m meterelf_tpu_torch, {len(files)} flagship "
+                f"files on {card}: process wall {wall:.3f} s "
+                f"({len(files) / wall:.0f} files/s with start-up), of which "
+                f"start-up (no files) {startup:.3f} s and the OpenCV-exact "
+                f"match val of the DIALS_NOT_FOUND files {cvdft_s:.3f} s; "
+                f"get_meter_values {steady[True]:.0f} images/s over the "
+                "flagship batches after the first")
+            say(f"cli: card stdout == get_meter_values (exact and fast); "
+                f"CPU == card on {len(subset)} files (exact and fast, every "
+                f"error kind), DEBUG=1 on {CLI_DEBUG} (overlays written); ALT "
+                f"{len(alt_files)} files, CPU == card on {len(alt_subset)}; "
+                f"the other {len(runs)} runs together in {rest_wall:.1f} s")
+        finally:
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+
     if not failures:
         phase("crop decode path", crop_run)
         phase("coefficient path", coef_run)
@@ -1389,6 +1649,7 @@ def main() -> int:
         phase("throughput", throughput)
         phase("rescue", rescue)
         phase("profile", profile)
+        phase("cli", cli_run)
 
     kernels = [results[k] for k in REPLACES]
     say(f"total {time.perf_counter() - t_start:.1f} s")

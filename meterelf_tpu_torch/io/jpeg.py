@@ -1,11 +1,13 @@
 """Host half of the JPEG feed: entropy decode, and whole-frame decode for
-the frames the coefficient reader rejects.
+the frames the coefficient reader rejects and for the file helpers.
 
-Port of the coefficient-feed part of meterelf_tpu/io/jpeg.py
-(``read_coefs_batch``, ``load_coef_feed``, ``load_coef_feed_shard``,
-``load_packed_crops_from_bytes``, ``_decode_bytes_full``, ``pack_crops``)
-over the port's own C readers in ``io/native/``, built by gcc at first
-use (``_build.host_jpeg``); none needs libjpeg:
+Port of meterelf_tpu/io/jpeg.py (the coefficient feed:
+``read_coefs_batch``, ``load_coef_feed``, ``load_coef_feed_shard``,
+``load_packed_crops_from_bytes``, ``_decode_bytes_full``, ``pack_crops``;
+the file helpers: ``decode_file``, ``decode_region``, ``crop_rect``,
+``load_crops``, ``load_crops_threaded``, ``load_crop_bytes_u8``) over the
+port's own C readers in ``io/native/``, built by gcc at first use
+(``_build.host_jpeg``); none needs libjpeg:
 
 - ``coefs.c`` decodes the Huffman stream of each frame's coefficient
   window on host threads (GIL-free); dequantisation, the IDCT, chroma
@@ -28,6 +30,12 @@ JAX feed on purpose: the JAX reader's libjpeg path can stop inside its
 first (Y) scan and hand on zero chroma (ROADMAP, open faults on the
 reference side); here the frame takes a fallback slot.
 
+The file helpers decode whole frames, as ``load_packed_crops_from_bytes``
+does: where the JAX package decodes only the meter rect's band with
+libjpeg-turbo's cropping and falls back to a whole frame, the port's
+``decode_region`` decodes the whole frame and crops it (the same pixels:
+``decoder.c`` decodes as libjpeg does).
+
 One difference from the JAX package: every call returns freshly
 allocated arrays that the caller owns; the JAX feed hands out
 thread-local double-buffered arenas that a second later call on the same
@@ -36,6 +44,7 @@ thread overwrites.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -118,21 +127,25 @@ def load_coef_feed(
     pad_hw: Tuple[int, int],
     fb_slots: int = 8,
     num_threads: int = 2,
+    compact: Optional[bool] = None,
 ) -> Feed:
     """The host feed of one ``make_coef_decode_fn`` step.
 
-    Picks the compact frequency-plane layout whenever the fused back-half
-    kernel (K10) takes the window (ops/jpegdec.backhalf_ok), else the
-    block layout (the plain IDCT and K11). Returns (coef_y, coef_cb,
-    coef_cr, qt, load_ok, fb_packed [fb_slots, PH, PW] i32, fb_idx
-    [fb_slots] i32): the fallback slots hold the frames the coefficient
-    reader rejects, decoded whole, with fb_idx their row (len(datas) for
-    an unused slot, which the step drops)."""
+    Picks the frequency-plane layout whenever the fused back-half kernel
+    (K10) takes the window (ops/jpegdec.backhalf_ok), else the block
+    layout (the plain IDCT and K11). The planes ship in the compact int8
+    wire when ``compact`` (None: the environment's
+    ``METERELF_COEF_COMPACT``, default 1; 0 ships dense i16 planes, as in
+    the JAX package), which K10 reads either way. Returns (coef_y,
+    coef_cb, coef_cr, qt, load_ok, fb_packed [fb_slots, PH, PW] i32,
+    fb_idx [fb_slots] i32): the fallback slots hold the frames the
+    coefficient reader rejects, decoded whole, with fb_idx their row
+    (len(datas) for an unused slot, which the step drops)."""
     win = coef_window(meter_rect, frame_wh[0], frame_wh[1])
     plane = backhalf_ok(win, tuple(pad_hw))
     return load_coef_feed_shard(
         datas, tuple(win), plane, meter_rect, frame_wh, pad_hw,
-        fb_slots=fb_slots, num_threads=num_threads)
+        fb_slots=fb_slots, num_threads=num_threads, compact=compact)
 
 
 def load_coef_feed_shard(
@@ -144,15 +157,19 @@ def load_coef_feed_shard(
     pad_hw: Tuple[int, int],
     fb_slots: int = 8,
     num_threads: int = 1,
+    compact: Optional[bool] = None,
 ) -> Feed:
     """load_coef_feed with the window (a CoefWindow as a plain tuple) and
-    the layout chosen by the caller: compact planes when ``plane``, else
+    the layout chosen by the caller: planes when ``plane`` (compact as
+    load_coef_feed says, the environment read at each call), else
     blocks. The first ``fb_slots`` frames the coefficient reader rejects
     are decoded whole (load_packed_crops_from_bytes) into the fallback
     slots, and load_ok is raised for those that decode."""
+    if compact is None:
+        compact = os.environ.get("METERELF_COEF_COMPACT", "1") != "0"
     cy, cb, cr, qt, ok = read_coefs_batch(
         datas, CoefWindow(*win_tuple), frame_wh, num_threads=num_threads,
-        plane_layout=plane, compact=plane)
+        plane_layout=plane, compact=plane and compact)
     load_ok = ok.copy()
     fb_idx = np.full(fb_slots, len(datas), np.int32)
     fb_packed = np.zeros((fb_slots, pad_hw[0], pad_hw[1]), np.int32)
@@ -214,6 +231,95 @@ def decode_bytes_full(data: bytes) -> Optional[np.ndarray]:
         return None
     w, h = int(w[0]), int(h[0])
     return out[:h * w * 3].reshape(h, w, 3).copy()
+
+
+def _read(path: str) -> bytes:
+    """A file's bytes; b"" (which no decode accepts) when it cannot be
+    read."""
+    try:
+        with open(path, "rb") as fp:
+            return fp.read()
+    except OSError:
+        return b""
+
+
+def decode_file(path: str, max_w: int = MAX_W, max_h: int = MAX_H
+                ) -> Optional[np.ndarray]:
+    """Decode one JPEG file to BGR u8 [h, w, 3]; None when it cannot be
+    read or decoded, or is larger than max_w x max_h."""
+    img = decode_bytes_full(_read(path))
+    if img is None or img.shape[0] > max_h or img.shape[1] > max_w:
+        return None
+    return img
+
+
+def crop_rect(img: np.ndarray, rect: Rect) -> np.ndarray:
+    (x0, y0) = rect.top_left
+    (x1, y1) = rect.bottom_right
+    return img[y0:y1, x0:x1]
+
+
+def decode_region(path: str, rect: Rect) -> Optional[np.ndarray]:
+    """The meter rect of one JPEG file as BGR u8 [rh, rw, 3]; None when
+    the file does not decode or the frame does not cover the rect. The
+    port decodes the whole frame and crops it (module docstring)."""
+    img = decode_file(path)
+    if img is None:
+        return None
+    c = crop_rect(img, rect)
+    return c if c.shape == (rect.height, rect.width, 3) else None
+
+
+def load_crop_bytes_u8(
+    datas: Sequence[bytes],
+    meter_rect: Rect,
+    num_threads: int = 2,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """In-memory JPEGs -> their meter rects as BGR u8 [N, rh, rw, 3] and
+    load_ok [N]: the whole-frame C pass of load_packed_crops_from_bytes,
+    unpacked; a frame that does not decode, or does not cover the rect,
+    gets load_ok=False and an all-zero slot."""
+    packed, ok = load_packed_crops_from_bytes(
+        datas, meter_rect, (meter_rect.height, meter_rect.width),
+        num_threads=num_threads)
+    shifts = np.array([0, 8, 16], np.int32)
+    return ((packed[..., None] >> shifts) & 255).astype(np.uint8), ok
+
+
+def load_crops_threaded(
+    filenames: Sequence[str],
+    meter_rect: Rect,
+    batch_size: Optional[int] = None,
+    num_threads: int = 8,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode files to [B, rh, rw, 3] u8 BGR crops and load_ok [B] in one
+    threaded C pass (GIL-free). B = batch_size (zero slots pad the batch)
+    or len(filenames); a file that cannot be read or decoded, or whose
+    frame does not cover the rect, gets load_ok=False."""
+    n = len(filenames)
+    B = batch_size or n
+    crops = np.zeros((B, meter_rect.height, meter_rect.width, 3), np.uint8)
+    ok = np.zeros(B, bool)
+    c, k = load_crop_bytes_u8([_read(fn) for fn in filenames], meter_rect,
+                              num_threads=num_threads)
+    crops[:n], ok[:n] = c, k
+    return crops, ok
+
+
+def load_crops(
+    filenames: Sequence[str],
+    meter_rect: Rect,
+    batch_size: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """load_crops_threaded one file at a time (decode_region per file)."""
+    B = batch_size or len(filenames)
+    crops = np.zeros((B, meter_rect.height, meter_rect.width, 3), np.uint8)
+    ok = np.zeros(B, bool)
+    for i, fn in enumerate(filenames):
+        c = decode_region(fn, meter_rect)
+        if c is not None:
+            crops[i], ok[i] = c, True
+    return crops, ok
 
 
 def compact_planes(plane: np.ndarray) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Needle angles and the 4-dial value, in plain torch (f64 on the
+"""Needle angles and the 4-dial value, in plain torch (f64 sums on the
 device).
 
 Port of meterelf_tpu/ops/angles.py read_dial_from_okey, read_dial,
@@ -8,17 +8,56 @@ static disk and annulus slots straight from okey3 and the stats key (big
 blob: owner == selected, else the closed mask); on the general branch it
 is gathered from components.finalize's needle region. Then the
 momentum, the half-plane tip filter, the cyclic trim over the static
-(angle, sqdist) slot order and the weighted mean, all in float64 as the
+(angle, sqdist) slot order and the weighted mean, in float64 as the
 reference computes them (see the original module for why each step is
-exact).
+exact). As in the JAX package, the geometry's own dtype ``f`` (float64,
+or float32 for ``MeterDecoder(exact=False)``) carries the minimum angle,
+the 0.75-turn test, the rebasing by one turn and the trim weights; every
+sum is taken in float64.
+
+The float64 sums run in the order in which the JAX package's graph sums
+them on the CPU (``tree_sum``: XLA's tree-reduction rewrite, runs of 32
+in index order), so a dial position has the JAX package's bits, on the
+card as on the CPU: the DEBUG output prints them in full.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..params import DeviceParams
+
+RUN = 32   # XLA CPU's tree-reduction window
+
+
+def _run_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in index order, from 0.0: the last row of a
+    cumulative sum along a leading axis. torch scans a dimension that is
+    not the innermost with one sequential loop a column (0.0 + x0, then
+    + x1, ...), on the CPU and on the card alike (its outer-dimension
+    scan kernel: one launch); with a single column the card would take
+    another, parallel scan, so x must have more than one."""
+    if x.numel() == x.shape[-1]:
+        raise ValueError("_run_sum needs more than one column")
+    return torch.cumsum(x.movedim(-1, 0), dim=0)[-1]
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order of XLA's CPU backend for a long
+    float reduction (its tree-reduction rewrite): zero-padded, evenly on
+    both sides, to a multiple of RUN, each run of RUN summed in index
+    order, again until RUN or fewer partial sums are left, which are
+    summed in order. Every step is one IEEE add, so the card and the CPU
+    give the same bits as the JAX package's graph. x holds at least two
+    sums (the callers stack two)."""
+    while x.shape[-1] > RUN:
+        n = x.shape[-1]
+        pad = -n % RUN
+        x = F.pad(x, (pad // 2, pad - pad // 2)).unflatten(-1, (-1, RUN))
+        x = _run_sum(x)
+    return _run_sum(x)
 
 
 def read_dials(okey3: torch.Tensor, keymax: torch.Tensor,
@@ -54,20 +93,22 @@ def read_dials_region(region: torch.Tensor, pa: DeviceParams
 
 def _read_dial_core(needle: torch.Tensor, tip: torch.Tensor,
                     pa: DeviceParams) -> Tuple[torch.Tensor, torch.Tensor]:
-    f64 = torch.float64
-    zero = torch.zeros((), dtype=f64, device=needle.device)
-    mom_x = torch.where(needle, pa.disk_sx2, zero).sum(-1)
-    mom_y = torch.where(needle, pa.disk_sy2, zero).sum(-1)
-    sign = pa.neg_sign.to(f64)
+    f = pa.disk_sx2.dtype       # the geometry's dtype (module docstring)
+    acc = torch.float64         # the sums'
+    zero = torch.zeros((), dtype=f, device=needle.device)
+    mom_x, mom_y = tree_sum(torch.stack([
+        torch.where(needle, pa.disk_sx2, zero),
+        torch.where(needle, pa.disk_sy2, zero)]).to(acc))
+    sign = pa.neg_sign.to(acc)
     msx = (sign * mom_x)[..., None]
     msy = (sign * mom_y)[..., None]
 
-    dot = pa.ann_x * msx + pa.ann_y * msy
+    dot = pa.ann_x.to(acc) * msx + pa.ann_y.to(acc) * msy
     kept = tip & (dot > 0)
     n = kept.sum(-1)
     readable = n > 0
 
-    inf = torch.tensor(float("inf"), dtype=f64, device=needle.device)
+    inf = torch.tensor(float("inf"), dtype=f, device=needle.device)
     angle = pa.ann_angle
     min_angle = torch.where(kept, angle, inf).amin(-1, keepdim=True)
     is_tail = kept & ~(torch.abs(angle - min_angle) < 0.75)
@@ -81,11 +122,10 @@ def _read_dial_core(needle: torch.Tensor, tip: torch.Tensor,
     in_trim = kept & (pos >= cut) & (pos < n_ - cut)
 
     rebased = torch.where(is_tail, angle - 1.0, angle)
-    w = torch.where(in_trim, pa.ann_sqd, zero)
-    num = (rebased * w).sum(-1)
-    den = w.sum(-1)
+    w = torch.where(in_trim, pa.ann_sqd, zero).to(acc)
+    num, den = tree_sum(torch.stack([rebased.to(acc) * w, w]))
     mean = num / torch.where(den == 0, torch.ones_like(den), den)
-    position = torch.remainder(10.0 * (mean - pa.zero_turn), 10.0)
+    position = torch.remainder(10.0 * (mean - pa.zero_turn.to(acc)), 10.0)
     return position, readable
 
 

@@ -2,13 +2,16 @@
 derived arrays the decode path consumes, and their carry onto a torch
 device (``to_device``).
 
-Copy of meterelf_tpu/params.py with three changes: ``yaml`` and ``PIL``
-are imported only inside the functions that read files, a ``Params`` may
-be built from the YAML-schema dict plus a template array (no PNG on
-disk), and ``to_device`` turns the numpy ``ParamArrays`` (this module's
-or the JAX package's) into tensors. The host math of
-``build_param_arrays`` is unchanged; tests/test_torch_params.py holds it
-equal to the original field by field.
+Copy of meterelf_tpu/params.py with three changes: the files are read
+by the port's own readers, io/yaml_subset.py for the YAML (what
+``yaml.safe_load`` gives, for the subset parameter files use) and
+io/png.py for the template (what Pillow's ``convert("L")`` gives), so no
+PyYAML or Pillow is needed; a ``Params`` may be built from the
+YAML-schema dict plus a template array (no PNG on disk); and
+``to_device`` turns the numpy ``ParamArrays`` (this module's or the JAX
+package's) into tensors. The host math of ``build_param_arrays`` is
+unchanged; tests/test_torch_params.py holds it equal to the original
+field by field.
 
 The YAML schema, validation semantics and error messages mirror the
 reference loader (reference: meterelf/_params.py:17-155), including the
@@ -36,6 +39,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from .colors import HlsColor
+from .io import yaml_subset
 from .types import DialCenter, Rect
 
 TEMPLATE_H = 119  # enforced by params schema in both shipped configs
@@ -137,11 +141,9 @@ class Params:
 
     @classmethod
     def load(cls, filename: str) -> "Params":
-        import yaml
-
         try:
             with open(filename, "rt") as fp:
-                data = yaml.safe_load(fp)
+                data = yaml_subset.load(fp.read())
         except Exception as error:
             message = f"Cannot load YAML data from {filename}"
             raise LoadError(message) from error
@@ -351,12 +353,11 @@ class ParamArrays(NamedTuple):
 
 
 def load_template_u8(path: str) -> np.ndarray:
-    from PIL import Image
+    """The template PNG as [h, w] u8 grey (io/png.read_gray: Pillow's
+    ``convert("L")``); LoadError for a PNG the reader refuses."""
+    from .io import png   # here: io/png.py imports this module's LoadError
 
-    img = Image.open(path)
-    if img.mode != "L":
-        img = img.convert("L")
-    return np.asarray(img, dtype=np.uint8)
+    return png.read_gray(path)
 
 
 def build_param_arrays(params: Params) -> ParamArrays:

@@ -40,6 +40,11 @@ environment, with the JAX package's names and defaults):
   needle region). A ``_interpret`` suffix, the JAX package's switch to
   Pallas interpret mode, is accepted and means nothing here.
 
+``MeterDecoder(exact=False)`` is the JAX package's fast mode: the
+geometry of the angle statistics (``FAST_F32``) goes to the device as
+float32, and ops/angles.py works in that dtype where the JAX package
+does, summing in float64 as before.
+
 The other branches read neither knob, as in JAX. ``METERELF_STATS_SLICED``,
 ``METERELF_CCL_DEQUAD`` and ``METERELF_STATS_GW`` change only the TPU
 kernels' layouts and give the same results: they select nothing in the
@@ -74,6 +79,9 @@ from ..ops.windows import windows
 W = 64
 FRONTENDS = ("split", "merged")
 QUAD_STATS = ("fused", "hist_pallas", "sort", "hist")
+# the ParamArrays fields exact=False demotes to float32 (JAX decode.py:607)
+FAST_F32 = ("zero_turn", "disk_sx2", "disk_sy2", "ann_x", "ann_y",
+            "ann_angle", "ann_sqd")
 
 
 def _variant(value: Optional[str], env: str, default: str,
@@ -108,12 +116,13 @@ class MeterDecoder:
     returns a BatchResult of device tensors (asynchronously on CUDA),
     ``decode_numpy`` and ``rescue_numpy`` return numpy fields, and
     ``feed_pad_hw`` is the (H, W) packed crops should have (the true
-    crop: the TPU's 256x256 staging pad has no use here). A CUDA device
+    crop: the TPU's 256x256 staging pad has no use here). ``exact=False``
+    is the JAX package's fast mode (module docstring). A CUDA device
     without a GPU raises; nothing falls back to the CPU.
     """
 
-    def __init__(self, params: Params, *, device: Any = "cuda",
-                 frontend: Optional[str] = None,
+    def __init__(self, params: Params, *, exact: bool = True,
+                 device: Any = "cuda", frontend: Optional[str] = None,
                  quad_stats: Optional[str] = None) -> None:
         # the quad branch's variants (module docstring); None reads the
         # environment, as the JAX package does at import
@@ -126,7 +135,11 @@ class MeterDecoder:
             raise RuntimeError(
                 "MeterDecoder(device='cuda'): no CUDA device is available")
         self.params = params
+        self.exact = exact
         host = params.arrays()
+        if not exact:
+            host = host._replace(**{k: getattr(host, k).astype(np.float32)
+                                    for k in FAST_F32})
         self.param_arrays = to_device(host, self.device)
         h, w = params.meter_rect.height, params.meter_rect.width
         self.crop_shape = (h, w, 3)

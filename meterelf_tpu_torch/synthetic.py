@@ -15,7 +15,9 @@ two shipped params.yml files, sample-images1/2), and
 Copy of meterelf_tpu/synthetic.py for the port, which cannot import the
 JAX package. The renderer is unchanged (tests/test_torch_params.py holds
 its crops equal to the original's bit for bit); ``make_params`` builds
-the Params from the template array and writes no PNG.
+the Params from the template array and writes no PNG, and
+``write_params`` writes a parameters directory with the port's own PNG
+and YAML writers.
 
 ``encode_jpeg`` makes test data for the JPEG feed: a numpy baseline JPEG
 encoder (JFIF, 4:2:0 or 4:4:4, the standard tables), so that frames
@@ -30,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .io import png, yaml_subset
 from .params import Params
 from .types import Rect
 
@@ -107,6 +110,19 @@ class SyntheticCamera:
         return Params("", self.params_dict("synthetic_template.png"),
                       template=self.make_template())
 
+    def write_params(self, dir_path: str) -> str:
+        """Write the camera's parameters directory: the template as
+        ``synthetic_template.png`` (io/png.py) and ``params.yml``
+        (io/yaml_subset.dump) beside it; returns the yml's path, which
+        ``params.load`` and the CLI take."""
+        os.makedirs(dir_path, exist_ok=True)
+        tpath = os.path.join(dir_path, "synthetic_template.png")
+        png.write(tpath, self.make_template())
+        path = os.path.join(dir_path, "params.yml")
+        with open(path, "w") as fp:
+            fp.write(yaml_subset.dump(self.params_dict(tpath)))
+        return path
+
     def render_frame(
         self,
         dial_positions: List[float],
@@ -181,6 +197,25 @@ class SyntheticCamera:
         (x0, y0), (x1, y1) = self.meter_rect
         return np.stack([f[y0:y1, x0:x1]
                          for f in self.render_frames(batch_positions)])
+
+
+def blind_dial(frame: np.ndarray, camera: SyntheticCamera,
+               offset: Tuple[int, int], dial: int) -> np.ndarray:
+    """A copy of ``frame`` (rendered by ``camera`` at ``offset`` with
+    ``dial`` stubbed) whose dial centre holds a 9x9 patch of two cyan hues
+    (172 and 187 degrees), left half and right half. The decoder samples
+    the centre's mean colour, and the hue shift puts the two hues on
+    either side of the wrap, so their mean is half a turn from both: no
+    pixel of the dial matches it, and the frame reads as the
+    needle-contours error (NEEDLE_CONTOURS) for that dial, after JPEG
+    coding too."""
+    out = frame.copy()
+    _name, (cx, cy), _diam = camera.dial_specs[dial]
+    x = camera.meter_rect.top_left[0] + offset[0] + int(cx)
+    y = camera.meter_rect.top_left[1] + offset[1] + int(cy)
+    out[y - 4:y + 5, x - 4:x] = (221, 255, 0)     # BGR, hue 172 degrees
+    out[y - 4:y + 5, x:x + 5] = (255, 225, 0)     # BGR, hue 187 degrees
+    return out
 
 
 def dial_positions(n: int, step: float = 1.7, spread: float = 2.3,

@@ -7,6 +7,10 @@ installed (``--noconftest`` skips tests/conftest.py, which sets JAX up):
 
 The first test builds the kernels with nvcc (meterelf_tpu_torch/_build).
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -724,3 +728,54 @@ def test_k11_batch_sizes_equal_plain(dev, name, B):
     bit-equal to its plain version."""
     win, pad_hw = K11_ALL[name]
     _k11_equal_plain(dev, win, pad_hw, B, np.random.default_rng(B))
+
+
+def test_cli_on_card_equals_cpu(dev, tmp_path):
+    """``python -m meterelf_tpu_torch`` on the card (the default device)
+    prints the bytes METERELF_DEVICE=cpu prints, on flagship JPEGs (the
+    port's encoder) with every error kind: a stubbed dial, a blind dial,
+    an all-zero frame, garbage bytes and a missing path; then the same
+    under METERELF_EXACT=0."""
+    cam = synthetic.DEFAULT_CAMERA
+    yml = cam.write_params(str(tmp_path))
+    rng = np.random.default_rng(12)
+    frames = cam.render_frames(rng.uniform(0, 10, (6, 4)).tolist())
+    off = (30, 40)
+    stub = cam.render_frame([1.0, 3.0, 5.0, 7.0], offset=off,
+                            stub_dials=(1,))
+    frames += [stub, synthetic.blind_dial(stub, cam, off, 1),
+               np.zeros_like(stub)]
+    files = []
+    for i, f in enumerate(frames):
+        files.append(str(tmp_path / f"f{i}.jpg"))
+        with open(files[-1], "wb") as fp:
+            fp.write(synthetic.encode_jpeg(f, 92))
+    files.append(str(tmp_path / "garbage.jpg"))
+    with open(files[-1], "wb") as fp:
+        fp.write(rng.integers(0, 256, 3000, np.uint8).tobytes())
+    files.append(str(tmp_path / "missing.jpg"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("DEBUG", "METERELF_DEVICE", "METERELF_EXACT")}
+    base["PYTHONPATH"] = repo
+    for extra in ({}, {"METERELF_EXACT": "0"}):
+        out = {}
+        for device in ("", "cpu"):
+            env = {**base, **extra}
+            if device:
+                env["METERELF_DEVICE"] = device
+            r = subprocess.run([sys.executable, "-m", "meterelf_tpu_torch",
+                                yml, *files], env=env, capture_output=True,
+                               text=True, timeout=600)
+            assert r.returncode == 0, r.stderr[-3000:]
+            out[device] = r.stdout
+        assert out[""] == out["cpu"], extra
+        lines = out[""].splitlines()
+        assert len(lines) == len(files)
+        assert sum("UNKNOWN" not in line for line in lines) >= 5
+        for i, what in ((6, "Cannot determine angle"),
+                        (7, "Cannot find needle contours"),
+                        (8, "Dials not found (match val = 0.0)"),
+                        (9, "Unable to load image"),
+                        (10, "Unable to load image")):
+            assert what in lines[i], lines[i]

@@ -1,6 +1,8 @@
 """The PyTorch port's numpy host copies (params, synthetic, errors,
-types, colors) against the JAX package's originals, and the port's
-import boundary (no jax, no yaml/PIL at import time)."""
+types, colors, debugging) against the JAX package's originals, and the
+port's import boundary (no jax, no yaml/PIL, at import time nor when it
+loads a params file and runs its CLI)."""
+import ast
 import os
 import subprocess
 import sys
@@ -29,6 +31,49 @@ CAMERAS = {
 }
 
 
+def test_params_and_cli_run_with_jax_yaml_pil_blocked(tmp_path):
+    """How the card's machine sees the package: with jax, meterelf_tpu,
+    yaml and PIL unimportable, params.load reads a write_params
+    directory, and the CLI (METERELF_DEVICE=cpu) reads two synthetic
+    JPEGs (the port's encoder) within 0.1 of their rendered positions,
+    writing its DEBUG overlays with the port's PNG writer."""
+    cam = t_syn.DEFAULT_CAMERA
+    pos = [[1.2, 3.4, 5.6, 7.8], [8.7, 6.5, 4.3, 2.1]]
+    files = []
+    for i, f in enumerate(cam.render_frames(pos)):
+        files.append(str(tmp_path / f"f{i}.jpg"))
+        with open(files[-1], "wb") as fp:
+            fp.write(t_syn.encode_jpeg(f, 92))
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'meterelf_tpu', 'yaml', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        "from meterelf_tpu_torch import cli, debugging, params, synthetic\n"
+        f"yml = synthetic.DEFAULT_CAMERA.write_params({str(tmp_path)!r})\n"
+        "p = params.load(yml)\n"
+        "assert p.arrays().template_u8.shape == (119, 188)\n"
+        "debugging.DEBUG = {'masks'}\n"
+        f"cli.main(['meterelf', yml, *{files!r}])\n"
+        "bad = [m for m in ('jax', 'meterelf_tpu', 'yaml', 'PIL')\n"
+        "       if sys.modules.get(m) is not None]\n"
+        "assert not bad, bad\n")
+    env = {**os.environ, "METERELF_DEVICE": "cpu",
+           "METERELF_DEBUG_DIR": str(tmp_path / "debug"), "PYTHONPATH": REPO}
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+    lines = r.stdout.splitlines()
+    assert [line.split(": ")[0] for line in lines] == files
+    names = [n for n, _, _ in cam.dial_specs]
+    for line, p in zip(lines, pos):
+        got = ast.literal_eval(line.split(" ", 2)[2])  # the DEBUG suffix
+        err = [abs((got[n] - q + 5) % 10 - 5) for n, q in zip(names, p)]
+        assert max(err) < 0.1, line
+    made = sorted(os.listdir(tmp_path / "debug"))
+    assert made == sorted(["f0_debug.png", "f1_debug.png"]
+                          + [f"mask_{n}.png" for n in names])
+
+
 def _same_array(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return (a.dtype == b.dtype and a.shape == b.shape
@@ -47,8 +92,9 @@ def test_build_param_arrays_equal(cam, tmp_path):
 
 
 def test_params_load_reads_yaml_and_png(tmp_path):
-    """Params.load (lazy yaml + PIL) builds the same arrays as the JAX
-    package's loader from the same files."""
+    """Params.load (the port's own YAML and PNG readers) builds the same
+    arrays as the JAX package's loader (PyYAML, PIL) from the same
+    files."""
     import yaml
 
     jp = j_syn.DEFAULT_CAMERA.make_params(str(tmp_path))
@@ -131,7 +177,7 @@ def test_to_device_carries_jax_param_arrays(cam, tmp_path):
 
 def test_port_imports_without_jax():
     """Importing every port module pulls in neither jax nor the JAX
-    package, and no yaml or PIL (those load only with a params file)."""
+    package, and no yaml or PIL (the port reads files without them)."""
     mods = ["meterelf_tpu_torch", "meterelf_tpu_torch.params",
             "meterelf_tpu_torch.synthetic", "meterelf_tpu_torch._build",
             "meterelf_tpu_torch.ops.frontend", "meterelf_tpu_torch.ops.windows",
@@ -139,8 +185,12 @@ def test_port_imports_without_jax():
             "meterelf_tpu_torch.ops.angles", "meterelf_tpu_torch.ops.match",
             "meterelf_tpu_torch.ops.components",
             "meterelf_tpu_torch.ops.jpegdec", "meterelf_tpu_torch.ops.jpeg_tail",
-            "meterelf_tpu_torch.io.jpeg",
-            "meterelf_tpu_torch.pipeline.decode"]
+            "meterelf_tpu_torch.ops.cvdft",
+            "meterelf_tpu_torch.io.jpeg", "meterelf_tpu_torch.io.png",
+            "meterelf_tpu_torch.io.yaml_subset",
+            "meterelf_tpu_torch.pipeline.decode", "meterelf_tpu_torch.api",
+            "meterelf_tpu_torch.cli", "meterelf_tpu_torch.__main__",
+            "meterelf_tpu_torch.debugging", "meterelf_tpu_torch.debugviz"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in ('jax', 'meterelf_tpu', 'yaml', 'PIL')\n"
