@@ -73,7 +73,18 @@ Runs from the root of a checkout, with nothing built beforehand:
    METERELF_EXACT=0 and DEBUG=1 (overlays written), byte-equal to the
    card; prints the CLI's process wall, its start-up alone and the
    OpenCV-exact match val's host time;
-7. prints a JSON line of per-kernel results (launches from the
+7. streams (meterelf_tpu_torch.stream): 64 rising flagship frames with
+   capture stamps through stream_decode_bytes and stream_decode, card
+   against CPU report for report; 11 batches of 256 JPEGs through
+   stream_decode_bytes at 2 and 8 feed threads and 8 feed workers
+   (images/s, busy share, readings within 0.1); the warm dispatches of
+   the crop decode and the coefficient step under
+   torch.cuda.set_sync_debug_mode("error"); the --watch daemon with a
+   truncated file, files dropped while it runs, --state, --debug-http
+   and --trace, then a run resumed from its --state; and calibrates
+   (python3 -m meterelf_tpu_torch.calibration) over 64 flagship JPEGs at
+   random offsets, card stdout equal to the CPU's;
+8. prints a JSON line of per-kernel results (launches from the
    coefficient path; K6's from the general branch, K8's from the
    scorer-only branch, K5's and K7's from the merged + hist_pallas crop
    decode, K9's from match_scores_v1), the card, then, only if every
@@ -122,6 +133,26 @@ CLI_ERRORS = {
     "garbage": "UNKNOWN Unable to load image",
     "missing": "UNKNOWN Unable to load image",
 }
+
+# the stream and calibration phases
+N_SHORT = 64      # frames of the short stream, card against the CPU
+B_SHORT = 16      # its batch
+RISE_START = 123.4  # value of the first rising frame (litres, mod 1000)
+RISE_STEP = 0.37    # litres a frame: steady flow, so the leak flag trips
+FRAME_SECONDS = 60  # capture interval in the rising frames' names
+T0 = 1792238400     # 2026-10-18 00:00:00 UTC, the first frame's stamp
+N_BACKLOG = 16    # watch: files in the spool before the daemon starts
+N_DRIP = 24       # watch: frames dropped, one at a time and in a cycle
+#                   under new names, until the daemon's pages are read
+DRIP_SECONDS = 0.1  # between dropped files (the daemon polls every 0.2 s)
+N_RESUME = 8      # files of the second run, resumed from --state
+N_RISE = N_SHORT + N_BACKLOG + N_DRIP + N_RESUME
+B_LONG = 256      # the long stream's batch (the stream's default)
+N_LONG = 11       # its batches: timed over 2-5, profiled over 6-9, and
+#                   a last one, so that the profiled window feeds a batch
+LONG_TIMED = (1, 5)      # reports whose stamps bound the timed batches
+LONG_PROFILED = (5, 9)   # reports whose stamps bound the profiled ones
+N_CAL = 64        # calibration frames at random offsets
 
 # Rates of the bounds (NVIDIA H100 SXM at 700 W): HBM3 and the dense int8
 # tensor-core and fp32 peaks of NVIDIA's H100 SXM specification. int32:
@@ -249,12 +280,95 @@ def write_cli_files(camera, jpegs, d: str) -> list:
 def start_cli(yml: str, files: list, **env: str) -> subprocess.Popen:
     """Start ``python3 -m meterelf_tpu_torch yml files...`` from the
     checkout, the CLI's knobs cleared and then set from ``env``."""
+    return start_module("meterelf_tpu_torch", [yml, *files], **env)
+
+
+def rising_positions(n: int, first: int = 0) -> np.ndarray:
+    """Dial positions [n, 4] of frames first, first+1, ... whose value
+    rises RISE_STEP litres a frame from RISE_START: the (0.0001, 0.001,
+    0.01, 0.1) dials show value*10, value, value/10 and value/100, mod
+    10."""
+    v = RISE_START + RISE_STEP * np.arange(first, first + n)
+    return np.stack([(v * 10) % 10, v % 10, (v / 10) % 10, (v / 100) % 10],
+                    axis=1)
+
+
+def stamp_name(i: int) -> str:
+    """The file name of rising frame i: its capture time
+    (YYYYMMDDHHMMSS, FRAME_SECONDS apart), as the stream reads it."""
+    return time.strftime("%Y%m%d%H%M%S",
+                         time.gmtime(T0 + FRAME_SECONDS * i)) + f"-{i:03d}.jpg"
+
+
+def render_jpeg(task) -> bytes:
+    """One frame of a synthetic camera as a QUALITY JPEG: task =
+    (camera name in meterelf_tpu_torch.synthetic, positions, offset)."""
+    from meterelf_tpu_torch import synthetic
+
+    name, pos, offset = task
+    cam = getattr(synthetic, name)
+    frame = cam.render_frame([float(p) for p in pos],
+                             offset=tuple(int(o) for o in offset))
+    return synthetic.encode_jpeg(frame, QUALITY)
+
+
+def rising_tasks(camera) -> list:
+    """The render_jpeg tasks of the stream phase's N_RISE rising frames
+    (offsets in a cycle), then of the N_CAL calibration frames (random
+    positions and offsets, seed 2026)."""
+    rng = np.random.default_rng(2026)
+    (x0, y0), (x1, y1) = camera.meter_rect
+    max_ox = (x1 - x0) - camera.template_w - 1
+    max_oy = (y1 - y0) - camera.template_h - 1
+    tasks = [("DEFAULT_CAMERA", p, (20 + (i % 3) * 7, 30 + (i % 5) * 5))
+             for i, p in enumerate(rising_positions(N_RISE))]
+    return tasks + [("DEFAULT_CAMERA", p, (int(rng.integers(0, max_ox)),
+                                           int(rng.integers(0, max_oy))))
+                    for p in rng.uniform(0, 10, (N_CAL, 4))]
+
+
+def start_render(tasks: list, workers: int):
+    """Start render_jpeg over tasks in spawned processes that see no card
+    (they start at the submission); returns the pool and the iterator of
+    the JPEGs in order."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    old = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        pool = ProcessPoolExecutor(workers, mp.get_context("spawn"))
+        return pool, pool.map(render_jpeg, tasks, chunksize=4)
+    finally:
+        if old is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = old
+
+
+def device_rows(prof, reps: int) -> list:
+    """(ms a rep, launches a rep, name) of every device activity of a
+    torch.profiler run over reps repetitions, largest first."""
+    found = []    # device kernels only: aten rows repeat their time
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CPU"):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            found.append((us / reps / 1e3, e.count // reps, e.key))
+    return sorted(found, reverse=True)
+
+
+def start_module(module: str, args: list, **env: str) -> subprocess.Popen:
+    """Start ``python3 -m module args...`` from the checkout with the
+    METERELF_ knobs cleared and then set from ``env``."""
     e = {k: v for k, v in os.environ.items()
          if k != "DEBUG" and not k.startswith("METERELF_")}
     e.update(PYTHONPATH=ROOT, **env)
     return subprocess.Popen(
-        [sys.executable, "-m", "meterelf_tpu_torch", yml, *files], env=e,
-        cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        [sys.executable, "-m", module, *args], env=e, cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
 
 def cli_lines(proc, label: str) -> list:
@@ -518,17 +632,10 @@ def profile_ms(label: str, fn, reps: int = 5) -> None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    found = []    # device kernels only: aten rows repeat their time
-    n_ops = 0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CPU"):
-            n_ops += e.count if e.key.startswith("aten::") else 0
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            found.append((us / reps / 1e3, e.count // reps, e.key))
-    found.sort(reverse=True)
+    found = device_rows(prof, reps)
+    n_ops = sum(e.count for e in prof.key_averages()
+                if str(e.device_type).endswith("CPU")
+                and e.key.startswith("aten::"))
     busy = sum(r[0] for r in found)
     say(f"profile {label} (B={B_MAIN}): wall {wall_ms:.3f} ms/batch, device "
         f"busy {busy:.3f} ms/batch ({100 * busy / wall_ms:.1f}%), "
@@ -594,6 +701,11 @@ def main() -> int:
                    "replaces": REPLACES[k], "library_ms": None}
                for k in REPLACES}
 
+    # the stream and calibration phases' JPEGs, in spawned processes
+    # beside the renders below; joined before anything is timed
+    t_rise = time.perf_counter()
+    rise_pool, rise_jpegs = start_render(
+        rising_tasks(synthetic.DEFAULT_CAMERA), FEED_THREADS)
     t0 = time.perf_counter()
     cam = synthetic.DEFAULT_CAMERA
     crops, true_pos = render(cam, B_MAIN, 1.7, 2.3)
@@ -623,6 +735,14 @@ def main() -> int:
         f"{np.mean([len(d) for d in flag_jpegs]):.0f} and "
         f"{np.mean([len(d) for d in alt_jpegs]):.0f} bytes/frame; "
         f"flagship and five-dial tiled to {B_MAIN}")
+    with rise_pool:
+        jpegs = list(rise_jpegs)
+    say(f"rendered and encoded {N_RISE} rising + {N_CAL} calibration "
+        f"flagship frames in {FEED_THREADS} processes beside the above: "
+        f"{time.perf_counter() - t_rise:.1f} s from their start")
+    state["rise"] = ([stamp_name(i) for i in range(N_RISE)],
+                     jpegs[:N_RISE], rising_positions(N_RISE))
+    state["cal"] = jpegs[N_RISE:]
 
     dec = MeterDecoder(cam.make_params(), device=dev)
     alt_dec = MeterDecoder(alt.make_params(), device=dev)
@@ -646,11 +766,13 @@ def main() -> int:
     variants[("split", "fused")] = dec
 
     def phase(name, fn) -> None:
+        t = time.perf_counter()
         try:
             fn()
         except Exception:  # report every phase, fail at the end
             failures.append(name)
             say(f"FAIL {name}:\n{traceback.format_exc()}")
+        say(f"phase {name}: {time.perf_counter() - t:.1f} s")
 
     # read before each cold launch: 5x the L2 cache
     state["flush"] = torch.zeros(1 << 28, dtype=torch.uint8, device=dev)
@@ -1485,7 +1607,8 @@ def main() -> int:
                 rest = list(pool.map(
                     lambda p: encode_frames(cam, p[None])[0],
                     true_pos[N_DISTINCT:]))
-            files = write_cli_files(cam, list(flag_jpegs) + rest,
+            state["cli_jpegs"] = list(flag_jpegs) + rest
+            files = write_cli_files(cam, state["cli_jpegs"],
                                     os.path.dirname(yml))
             alt_files = write_cli_files(alt, alt_jpegs,
                                         os.path.dirname(alt_yml))
@@ -1638,6 +1761,407 @@ def main() -> int:
                     p.wait()
             shutil.rmtree(tmp, ignore_errors=True)
 
+    def stream_run() -> None:
+        """The stream (meterelf_tpu_torch.stream): a short stream of
+        rising frames through stream_decode_bytes and stream_decode on the
+        card and on the CPU, report for report; the long stream at
+        num_threads 2 and 8 and feed_workers 8 (images/s, busy share);
+        the dispatches under set_sync_debug_mode("error"); and the
+        daemon: python3 -m meterelf_tpu_torch.stream --watch with
+        --state, --debug-http and --trace, then a resumed run."""
+        errors = []
+
+        def part(name, fn) -> None:
+            t = time.perf_counter()
+            try:
+                fn()
+            except Exception:  # report every part, fail at the end
+                errors.append(name)
+                say(f"FAIL stream/{name}:\n{traceback.format_exc()}")
+            say(f"stream/{name}: {time.perf_counter() - t:.1f} s")
+
+        part("short stream", short_stream)
+        part("long stream", long_stream)
+        part("dispatch sync", dispatch_sync)
+        part("daemon", stream_daemon)
+        check(not errors, f"stream parts failed: {errors}")
+
+    def short_stream() -> None:
+        import dataclasses
+
+        from meterelf_tpu_torch import stream as st_mod
+
+        names, jpegs, pos = state["rise"]
+        names, jpegs = names[:N_SHORT], jpegs[:N_SHORT]
+        params = cam.make_params()
+        ts = [st_mod._filename_timestamp(n) for n in names]
+        check(all(t is not None for t in ts), "stamp names not read")
+        crops_u8, ok = tio.load_crop_bytes_u8(jpegs, cam.meter_rect)
+        check(ok.all(), "a rising frame did not decode")
+        reps = {}
+        for where, d in (("card", dec),
+                         ("cpu", MeterDecoder(params, device="cpu"))):
+            reset(all_kernels)
+            t = time.perf_counter()
+            reps[where, "bytes"] = list(st_mod.stream_decode_bytes(
+                params, zip(names, jpegs), FRAME_WH, decoder=d,
+                batch_size=B_SHORT, timestamps=ts))
+            wall_b = time.perf_counter() - t
+            if where == "card":
+                launches = counts(all_kernels)
+                for k, n in launches.items():
+                    results[k]["stream_launches"] = n
+                want = {k: int(k in ("frontend", "windows", "ccl", "stats",
+                                     "backhalf_planes")) * N_SHORT // B_SHORT
+                        for k in launches}
+                say(f"stream (card): stream_decode_bytes launches {launches}")
+            t = time.perf_counter()
+            reps[where, "crops"] = list(st_mod.stream_decode(
+                params, zip(names, crops_u8), decoder=d,
+                batch_size=B_SHORT, timestamps=ts))
+            say(f"short stream ({where}): {N_SHORT} rising frames in "
+                f"batches of {B_SHORT}: bytes {wall_b:.3f} s, crops "
+                f"{time.perf_counter() - t:.3f} s")
+
+        def fields(rs) -> list:
+            return [dataclasses.replace(r, images_per_sec=0.0) for r in rs]
+
+        base = fields(reps["card", "bytes"])
+        for key, rs in reps.items():
+            check(fields(rs) == base, f"short stream {key} reports differ "
+                  f"from the card's bytes stream: {fields(rs)} != {base}")
+        last = reps["card", "bytes"][-1]
+        say(f"short stream: last report {last}")
+        check(len(base) == N_SHORT // B_SHORT and last.frames_ok == N_SHORT
+              and last.frames_error == 0 and last.leak_suspected
+              and last.flow_lph is not None, "short stream: want every "
+              "frame read and the leak flag up")
+        want_flow = RISE_STEP * 3600.0 / FRAME_SECONDS
+        check(abs(last.flow_lph - want_flow) < 0.05 * want_flow,
+              f"short stream flow {last.flow_lph}, rendered {want_flow}")
+        say("short stream: card == CPU, bytes == crops, report for report "
+            "(every field but images_per_sec); leak flag up")
+        check(launches == want, f"stream launches {launches}, want {want}")
+
+    class Recording(MeterDecoder):
+        """A MeterDecoder that keeps each decode's device result."""
+
+        def __init__(self, *a, **kw) -> None:
+            super().__init__(*a, **kw)
+            self.results = []
+
+        def decode(self, *a, **kw):
+            res = super().decode(*a, **kw)
+            self.results.append(res)
+            return res
+
+    def long_stream() -> None:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        from meterelf_tpu_torch import stream as st_mod
+        from meterelf_tpu_torch.profiling import StageTimers
+
+        jpegs = state.get("cli_jpegs")
+        if jpegs is None:
+            jpegs = list(flag_jpegs) + encode_frames(
+                cam, true_pos[N_DISTINCT:])
+        n = B_LONG * N_LONG
+        frames = [(f"l{i:05d}.jpg", jpegs[i % B_MAIN]) for i in range(n)]
+        params = cam.make_params()
+        rec = Recording(params, device=dev)
+        batch = jpegs[:B_LONG]
+        for threads in (2, 8):
+            # the same batch unpipelined, and its host feed alone
+            loop, feed_only = [], []
+            for _ in range(3):
+                t = time.perf_counter()
+                f = tio.load_coef_feed(batch, cam.meter_rect, FRAME_WH,
+                                       pad_hw, num_threads=threads)
+                feed_only.append(time.perf_counter() - t)
+                to_numpy(step(None, *f))
+                loop.append(time.perf_counter() - t)
+            say(f"long stream baseline, num_threads={threads}: host feed "
+                f"alone {np.median(feed_only) * 1e3:.3f} ms a batch; feed -> "
+                f"step -> numpy unpipelined {np.median(loop) * 1e3:.3f} ms "
+                f"a batch (medians of 3, B={B_LONG})")
+        for label, kw in (("num_threads=2", {"num_threads": 2}),
+                          ("num_threads=8", {"num_threads": 8}),
+                          ("feed_workers=8", {"feed_workers": 8})):
+            rec.results.clear()
+            tm = StageTimers()
+            prof = torch_profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            stamps, t_leg = [], time.perf_counter()
+            for k, rep in enumerate(st_mod.stream_decode_bytes(
+                    params, iter(frames), FRAME_WH, decoder=rec,
+                    batch_size=B_LONG, timers=tm, **kw)):
+                stamps.append(time.perf_counter())
+                if k == LONG_PROFILED[0]:
+                    prof.start()
+                    t_prof = time.perf_counter()   # after its start-up
+                elif k == LONG_PROFILED[1]:
+                    prof.stop()
+            check(len(stamps) == N_LONG and rep.frames_ok == n,
+                  f"long stream {label}: {len(stamps)} reports, {rep}")
+            a, b = LONG_TIMED
+            per = (stamps[b] - stamps[a]) / (b - a)
+            a, b = LONG_PROFILED
+            pwall = (stamps[b] - t_prof) / (b - a) * 1e3
+            busy = sum(r[0] for r in device_rows(prof, b - a))
+            res = [to_numpy(r) for r in rec.results]
+            got = np.concatenate([r.dial_pos for r in res])
+            check(all((r.err == 0).all() and r.converged.all() for r in res),
+                  f"long stream {label}: a frame did not read")
+            e = circ_err(got, true_pos[np.arange(n) % B_MAIN]).max()
+            check(e < POS_TOL, f"long stream {label}: reading error {e}")
+            timers = ", ".join(
+                f"{s} {tm.totals[s] / tm.counts[s] * 1e3:.3f} ms"
+                for s in ("dispatch", "drain"))
+            say(f"long stream {label} on {card}: {B_LONG / per:.0f} images/s,"
+                f" {per * 1e3:.3f} ms a batch (B={B_LONG}, batches "
+                f"{LONG_TIMED[0] + 1}-{LONG_TIMED[1]} of {N_LONG}); device "
+                f"busy {busy:.3f} ms a batch = {100 * busy / pwall:.1f}% of "
+                f"{pwall:.3f} ms over batches {LONG_PROFILED[0] + 1}-"
+                f"{LONG_PROFILED[1]} (torch.profiler on); per batch "
+                f"{timers}; first report {stamps[0] - t_leg:.3f} s after the "
+                f"start (the feed's start-up, two batches); max reading "
+                f"error {e:.4f} over {n} frames")
+
+    def dispatch_sync() -> None:
+        from meterelf_tpu_torch.pipeline.decode import to_host_later
+
+        feed = state["feed"]
+        fb_feed = tio.load_coef_feed(fb_datas, cam.meter_rect, FRAME_WH,
+                                     pad_hw, num_threads=FEED_THREADS)
+        check((fb_feed[6] < B_MAIN).any(), "no fallback slot in use")
+        calls = {
+            "crop decode (u8 crops, quad split branch)": lambda: dec(crops),
+            "coefficient step (plane feed)": lambda: step(None, *feed),
+            "coefficient step with fallback slots":
+                lambda: step(None, *fb_feed),
+            "stream dispatch (step, then its result's pull queued)":
+                lambda: to_host_later(step(None, *feed)),
+        }
+        bad = []
+        for name, fn in calls.items():
+            fn()                        # warm
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            except RuntimeError:
+                bad.append(name)
+                say(f"dispatch sync: {name} synchronised:\n"
+                    f"{traceback.format_exc()}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        check(not bad, f"dispatches that wait on the card: {bad}")
+        say(f"dispatch sync: {len(calls)} warm dispatches raise nothing under "
+            f"torch.cuda.set_sync_debug_mode('error'): {list(calls)}")
+
+    def stream_daemon() -> None:
+        import glob
+        import queue
+        import re
+        import shutil
+        import tempfile
+        import threading
+        import urllib.request
+
+        from meterelf_tpu_torch import stream as st_mod
+
+        names, jpegs, _pos = state["rise"]
+        line_re = re.compile(
+            r"frames=(\d+) ok=(\d+) err=(\d+) last=\S+ cum=([\d.]+)L "
+            r"flow=\S+L/h leak=(YES|no) rate=\d+img/s$")
+        tmp = tempfile.mkdtemp(prefix="meterelf_stream_")
+        procs, stop = [], threading.Event()
+        try:
+            yml = cam.write_params(os.path.join(tmp, "params"))
+            state_f = os.path.join(tmp, "state.json")
+            trace_d = os.path.join(tmp, "trace")
+
+            def drop(d, i, data=None) -> None:
+                p = os.path.join(d, f"w{i:03d}.jpg")
+                with open(p + ".part", "wb") as fp:
+                    fp.write(jpegs[i] if data is None else data)
+                os.replace(p + ".part", p)
+
+            def daemon(d, *extra):
+                p = start_module("meterelf_tpu_torch.stream", [
+                    yml, "--watch", d, "--coef", "640x480", "--poll", "0.2",
+                    "--watch-idle-exit", "2", "--state", state_f,
+                    "--batch", str(B_SHORT), *extra])
+                procs.append(p)
+                out, err = queue.Queue(), queue.Queue()
+                p.readers = [threading.Thread(target=lambda f=f, q=q: [
+                    q.put(x) for x in f], daemon=True)
+                    for f, q in ((p.stdout, out), (p.stderr, err))]
+                for t in p.readers:
+                    t.start()
+                return p, out, err
+
+            def finish(p) -> int:
+                rc = p.wait(timeout=120)
+                for t in p.readers:
+                    t.join(timeout=30)
+                return rc
+
+            def lines(q) -> list:
+                got = []
+                while not q.empty():
+                    got.append(q.get().rstrip("\n"))
+                return got
+
+            spool = os.path.join(tmp, "spool")
+            os.makedirs(spool)
+            first = N_SHORT
+            for i in range(first, first + N_BACKLOG):
+                drop(spool, i)
+            with open(os.path.join(spool, "w000t.jpg"), "wb") as fp:
+                fp.write(jpegs[first][:len(jpegs[first]) // 2])   # no EOI
+            t0 = time.perf_counter()
+            p, out, err = daemon(spool, "--debug-http", "0",
+                                 "--trace", trace_d)
+            port, errs = None, []
+            while port is None:
+                try:
+                    x = err.get(timeout=1)
+                except queue.Empty:
+                    check(p.poll() is None and time.perf_counter() - t0 < 120,
+                          f"daemon not up (exit {p.poll()}): {errs[-30:]}")
+                    continue
+                errs.append(x)
+                m = re.search(r"debug viewer: http://localhost:(\d+)/", x)
+                port = int(m.group(1)) if m else None
+            dropped = []
+
+            def drip() -> None:
+                # until the pages are read: a daemon out of files exits
+                d0 = first + N_BACKLOG
+                while not stop.is_set():
+                    k = len(dropped)
+                    drop(spool, d0 + k, jpegs[d0 + k % N_DRIP])
+                    dropped.append(k)
+                    time.sleep(DRIP_SECONDS)
+
+            dripper = threading.Thread(target=drip, daemon=True)
+            dripper.start()
+            report1 = out.get(timeout=120)
+            base = f"http://127.0.0.1:{port}"
+            page = urllib.request.urlopen(base + "/", timeout=30).read()
+            png = urllib.request.urlopen(base + "/frame.png",
+                                         timeout=30).read()
+            stop.set()
+            dripper.join()
+            check(p.poll() is None or p.returncode == 0,
+                  "the daemon ended while files were still dropped")
+            rc = finish(p)
+            got = [report1] + lines(out)
+            got = [x.rstrip("\n") for x in got]
+            errs += lines(err)
+            check(rc == 0, f"stream daemon exited {rc}: {errs[-20:]}")
+            check(b"meterelf live debug" in page and b"/frame.png" in page,
+                  f"debug page: {page[:200]!r}")
+            check(png[:8] == b"\x89PNG\r\n\x1a\n", "frame.png is no PNG")
+            m = [line_re.match(x) for x in got]
+            check(all(m), f"report lines: {got}")
+            n1 = N_BACKLOG + 1 + len(dropped)
+            total, ok1, nerr, cum1 = (int(m[-1].group(1)), int(m[-1].group(2)),
+                                      int(m[-1].group(3)),
+                                      float(m[-1].group(4)))
+            check(total == n1 and nerr == 1 and ok1 == n1 - 1,
+                  f"daemon: last report {got[-1]!r}, want frames={n1} with "
+                  "the truncated file as the one error")
+            traces = [f for f in os.listdir(trace_d) if f.endswith(".json")]
+            check(len(traces) == 1 and os.path.getsize(
+                os.path.join(trace_d, traces[0])) > 0, f"trace: {traces}")
+            st = st_mod.load_state(state_f)
+            check(st.frames_total == n1, f"state: {st.frames_total} frames")
+            wall1 = time.perf_counter() - t0
+            # a second run, over more files, resumes from the checkpoint
+            spool2 = os.path.join(tmp, "spool2")
+            os.makedirs(spool2)
+            nxt = first + N_BACKLOG + N_DRIP
+            for i in range(nxt, nxt + N_RESUME):
+                drop(spool2, i)
+            p2 = start_module("meterelf_tpu_torch.stream", [
+                yml, *sorted(glob.glob(os.path.join(spool2, "*.jpg"))),
+                "--coef", "640x480", "--state", state_f,
+                "--batch", str(B_SHORT)])
+            procs.append(p2)
+            o2, e2 = p2.communicate(timeout=120)
+            got2 = o2.splitlines()
+            check(p2.returncode == 0,
+                  f"resumed run exited {p2.returncode}: {e2[-3000:]}")
+            m2 = line_re.match(got2[-1]) if got2 else None
+            check(m2 is not None and int(m2.group(1)) == n1 + N_RESUME
+                  and int(m2.group(3)) == 1 and float(m2.group(4)) > cum1,
+                  f"resumed run: {got2}, the daemon ended on {got[-1]!r}")
+            say(f"stream daemon: {n1} files ({N_BACKLOG} backlog, "
+                f"{len(dropped)} dropped while it ran, 1 truncated: retried, "
+                f"then one error frame) in {wall1:.1f} s with --debug-http "
+                f"(/ and /frame.png: {len(png)} B PNG) and --trace "
+                f"({os.path.getsize(os.path.join(trace_d, traces[0]))} B); "
+                f"last line {got[-1]!r}; resumed from --state over "
+                f"{N_RESUME} more: {got2[-1]!r}")
+        finally:
+            stop.set()
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                    q.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def calibration_run() -> None:
+        """python3 -m meterelf_tpu_torch.calibration over N_CAL flagship
+        JPEGs at random offsets, on the card and with METERELF_DEVICE=cpu:
+        stdout equal byte for byte; the centres against the camera's."""
+        import re
+        import shutil
+        import tempfile
+
+        tmp = tempfile.mkdtemp(prefix="meterelf_cal_")
+        procs = []
+        try:
+            yml = cam.write_params(os.path.join(tmp, "cal"))
+            files = []
+            for i, data in enumerate(state["cal"]):
+                files.append(os.path.join(tmp, "cal", f"c{i:03d}.jpg"))
+                with open(files[-1], "wb") as fp:
+                    fp.write(data)
+            t = time.perf_counter()
+            for env in ({}, {"METERELF_DEVICE": "cpu"}):
+                procs.append(start_module("meterelf_tpu_torch.calibration",
+                                          [yml, *files], **env))
+            outs = []
+            for p in procs:
+                o, e = p.communicate(timeout=600)
+                check(p.returncode == 0,
+                      f"calibration exited {p.returncode}: {e[-3000:]}")
+                outs.append(o)
+            wall = time.perf_counter() - t
+            check(outs[0] == outs[1], "calibration: card stdout != CPU "
+                  f"stdout:\n{outs[0]}\n{outs[1]}")
+            got = [tuple(map(float, c)) for c in re.findall(
+                r"center: \[([\d.]+), ([\d.]+)\]", outs[0])]
+            true = [c for _n, c, _d in cam.dial_specs]
+            check(len(got) == len(true), f"calibration: {outs[0]}")
+            dist = max(float(np.hypot(a[0] - b[0], a[1] - b[1]))
+                       for a, b in zip(got, true))
+            say(f"calibration: {N_CAL} flagship JPEGs, card and CPU (in "
+                f"parallel) in {wall:.1f} s; stdout equal byte for byte; "
+                f"largest distance from the true dial centres {dist:.3f} px")
+            say("calibration stdout:\n" + outs[0].rstrip())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+
     if not failures:
         phase("crop decode path", crop_run)
         phase("coefficient path", coef_run)
@@ -1650,6 +2174,8 @@ def main() -> int:
         phase("rescue", rescue)
         phase("profile", profile)
         phase("cli", cli_run)
+        phase("stream", stream_run)
+        phase("calibration", calibration_run)
 
     kernels = [results[k] for k in REPLACES]
     say(f"total {time.perf_counter() - t_start:.1f} s")

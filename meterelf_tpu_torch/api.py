@@ -21,6 +21,7 @@ from typing import (Any, Dict, Iterable, Iterator, NamedTuple, Optional,
                     Sequence)
 
 import numpy as np
+import torch
 
 from . import debugging
 from .errors import (
@@ -151,6 +152,17 @@ def result_to_data(
     return MeterImageData(filename, value, error, meter_values)
 
 
+def device_from_env(device: Any = None) -> torch.device:
+    """``device``, else the environment's ``METERELF_DEVICE``, else
+    ``cuda``; a CUDA device raises when no card is present (nothing
+    falls back to the CPU unasked)."""
+    dev = torch.device(os.environ.get("METERELF_DEVICE", "cuda")
+                       if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev}: no CUDA device is available")
+    return dev
+
+
 def get_meter_values(
     params_file: str,
     filenames: Iterable[str],
@@ -165,9 +177,8 @@ def get_meter_values(
     MeterDecoder(exact=exact) on ``device`` (None: ``METERELF_DEVICE``,
     default ``cuda``)."""
     params = load_params(params_file)
-    if device is None:
-        device = os.environ.get("METERELF_DEVICE", "cuda")
-    dec = decoder or MeterDecoder(params, exact=exact, device=device)
+    dec = decoder or MeterDecoder(params, exact=exact,
+                                  device=device_from_env(device))
 
     def flush(batch: Sequence[str]) -> Iterator[MeterImageData]:
         datas = []

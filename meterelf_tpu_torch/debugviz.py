@@ -1,8 +1,8 @@
 """Headless debug visualization: annotated overlay PNGs.
 
-Port of meterelf_tpu/debugviz.py ``render_overlay`` and ``render_masks``
-(``serve_overlays``, the live viewer, belongs to the stream, which the
-port does not have yet). The reference's DEBUG mode pops cv2.imshow
+Port of meterelf_tpu/debugviz.py ``render_overlay``, ``render_masks``
+and ``serve_overlays`` (the stream's live viewer, ``--debug-http``). The
+reference's DEBUG mode pops cv2.imshow
 windows with contour/momentum overlays (meterelf/_reading.py:43-78) and
 per-dial mask windows (meterelf/_dial_data.py:50-54); headless, those
 become files. ``render_overlay`` re-derives the per-dial masks for one
@@ -15,7 +15,7 @@ the pixels the JAX package's do.
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -129,6 +129,92 @@ def render_overlay(
         out_dir, os.path.basename(filename).rsplit(".", 1)[0] + "_debug.png")
     png.write(out_path, big)
     return out_path
+
+
+def serve_overlays(params: Params, latest_fn: Callable[[], object],
+                   port: int, scale: int = 4,
+                   host: str = "127.0.0.1") -> "object":
+    """Live debug viewer: a daemon-thread HTTP server showing the overlay
+    of the CURRENT frame.
+
+    The reference's DEBUG affordance is interactive cv2.imshow windows
+    (meterelf/_reading.py:43-78), unusable on a headless meter server.
+    This is the server-shaped equivalent: `--debug-http PORT` on the
+    stream daemon serves an auto-refreshing page at http://host:PORT/
+    whose image, /frame.png, is render_overlay() of the most recently
+    ingested frame (404 until there is one). The overlay is rendered
+    once per new frame name, on the first request that asks for it, and
+    every later request for the same frame gets the same bytes: an
+    unwatched stream pays nothing, and a watched one pays once a frame,
+    however often the page refreshes.
+
+    latest_fn: zero-arg callable returning the newest INGESTED filename
+    (or None); with a batched stream this can run up to one batch ahead
+    of the printed readings. Returns the ThreadingHTTPServer (bound port
+    = server_address[1]; shut down with .shutdown()). Binds 127.0.0.1 by
+    default: the overlays show live camera content."""
+    import html
+    import http.server
+    import tempfile
+    import threading
+    import time
+
+    lock = threading.Lock()
+    cache = {"fn": None, "png": b""}   # the newest rendered frame
+
+    def frame_png(fn: object) -> bytes:
+        with lock:
+            if fn != cache["fn"]:
+                data = b""
+                if fn and os.path.exists(str(fn)):
+                    with tempfile.TemporaryDirectory() as td:
+                        p = render_overlay(str(fn), params, td, scale=scale)
+                        if p:
+                            with open(p, "rb") as fp:
+                                data = fp.read()
+                cache["fn"], cache["png"] = fn, data
+            return cache["png"]
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a) -> None:  # quiet
+            pass
+
+        def _send(self, code: int, ctype: str, body: bytes) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("Cache-Control", "no-store")
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self) -> None:
+            if self.path.startswith("/frame.png"):
+                data = frame_png(latest_fn())
+                if not data:
+                    self._send(404, "text/plain", b"no frame yet")
+                    return
+                self._send(200, "image/png", data)
+                return
+            fn = latest_fn()
+            name = (html.escape(os.path.basename(str(fn)))
+                    if fn else "(no frame yet)")
+            body = (
+                "<html><head><meta http-equiv='refresh' content='2'>"
+                "<title>meterelf live debug</title></head>"
+                "<body style='background:#111;color:#dfe3e8;"
+                "font-family:monospace'>"
+                f"<div style='margin:8px'>{name}</div>"
+                f"<img src='/frame.png?t={time.time()}' "
+                "style='image-rendering:pixelated'>"
+                "</body></html>").encode()
+            self._send(200, "text/html", body)
+
+    # localhost-only by default: the overlays expose live camera frames;
+    # the stream CLI advertises the URL as localhost, so bind exactly
+    # that (pass host explicitly to expose deliberately)
+    srv = http.server.ThreadingHTTPServer((host, port), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
 
 
 def render_masks(params: Params, out_dir: str, scale: int = 4) -> List[str]:

@@ -148,6 +148,12 @@ def load_coef_feed(
         fb_slots=fb_slots, num_threads=num_threads, compact=compact)
 
 
+def compact_default() -> bool:
+    """The feed's wire when ``compact`` is None: the environment's
+    ``METERELF_COEF_COMPACT`` (default 1: the compact int8 wire)."""
+    return os.environ.get("METERELF_COEF_COMPACT", "1") != "0"
+
+
 def load_coef_feed_shard(
     datas: Sequence[bytes],
     win_tuple: Tuple[int, ...],
@@ -166,7 +172,7 @@ def load_coef_feed_shard(
     are decoded whole (load_packed_crops_from_bytes) into the fallback
     slots, and load_ok is raised for those that decode."""
     if compact is None:
-        compact = os.environ.get("METERELF_COEF_COMPACT", "1") != "0"
+        compact = compact_default()
     cy, cb, cr, qt, ok = read_coefs_batch(
         datas, CoefWindow(*win_tuple), frame_wh, num_threads=num_threads,
         plane_layout=plane, compact=plane and compact)

@@ -108,9 +108,9 @@ def _read_dial_core(needle: torch.Tensor, tip: torch.Tensor,
     n = kept.sum(-1)
     readable = n > 0
 
-    inf = torch.tensor(float("inf"), dtype=f, device=needle.device)
     angle = pa.ann_angle
-    min_angle = torch.where(kept, angle, inf).amin(-1, keepdim=True)
+    min_angle = torch.where(kept, angle, float("inf")).amin(-1,
+                                                           keepdim=True)
     is_tail = kept & ~(torch.abs(angle - min_angle) < 0.75)
     k_tail = is_tail.sum(-1, keepdim=True)
 
@@ -134,8 +134,8 @@ def assemble_value(positions: torch.Tensor, value_perm: Tuple[int, ...]
     """Carry-corrected 4-dial value (reference _reading.py:163-182) from
     positions [B, 4]; value_perm lists the dials in name-sorted order
     (r4, r3, r2, r1) = ("0.0001", "0.001", "0.01", "0.1")."""
-    p = positions[:, list(value_perm)]
-    r4, r3, r2, r1 = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
+    # one column at a time: indexing by a list would copy it to the device
+    r4, r3, r2, r1 = (positions[:, i] for i in value_perm)
     i64 = torch.int64
 
     def digit(r: torch.Tensor, lower_le2: torch.Tensor,

@@ -113,8 +113,12 @@ class MeterDecoder:
     """Batched decoder for one camera configuration on one torch device.
 
     Duck-types meterelf_tpu.pipeline.decode.MeterDecoder: ``__call__``
-    returns a BatchResult of device tensors (asynchronously on CUDA),
-    ``decode_numpy`` and ``rescue_numpy`` return numpy fields, and
+    returns a BatchResult of device tensors; on CUDA it returns before
+    the card has run it, and the quad branch's call never waits for the
+    card (host inputs go up through pinned, non-blocking copies; no
+    tensor is built from host values per call), so the host can prepare
+    the next batch meanwhile; ``decode_numpy`` and ``rescue_numpy``
+    return numpy fields, and
     ``feed_pad_hw`` is the (H, W) packed crops should have (the true
     crop: the TPU's 256x256 staging pad has no use here). ``exact=False``
     is the JAX package's fast mode (module docstring). A CUDA device
@@ -170,7 +174,7 @@ class MeterDecoder:
         )
 
     def _packed(self, crops: Any) -> torch.Tensor:
-        x = torch.as_tensor(crops).to(self.device)
+        x = upload(crops, self.device)
         h, w = self.feed_pad_hw
         if x.dim() == 4:          # [B, H, W, 3] u8 BGR -> packed i32
             c = x.to(torch.int32)
@@ -183,7 +187,7 @@ class MeterDecoder:
     def _load_ok(self, load_ok: Any, B: int) -> torch.Tensor:
         if load_ok is None:
             return torch.ones(B, dtype=torch.bool, device=self.device)
-        return torch.as_tensor(load_ok).to(self.device, torch.bool)
+        return upload(load_ok, self.device).to(torch.bool)
 
     def decode(self, crops: Any, load_ok: Any = None,
                caps: Optional[Sequence[int]] = None) -> BatchResult:
@@ -341,7 +345,7 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
     def step(pa: Any, cy: Any, cb: Any, cr: Any, qt: Any, ok: Any,
              fb_packed: Any, fb_idx: Any) -> BatchResult:
         del pa
-        cy, cb, cr, qt = (torch.as_tensor(a).to(dev) for a in (cy, cb, cr, qt))
+        cy, cb, cr, qt = (upload(a, dev) for a in (cy, cb, cr, qt))
         rows, cols = cy.shape[1:]
         if cy.dtype == torch.int8:
             rows = rows * 2 // 3      # compact wire: 3/2 stored rows a row
@@ -360,15 +364,49 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
         keep = (idx >= 0) & (idx < B)
         if bool(keep.any()):
             fb = torch.as_tensor(fb_packed)
-            packed[idx[keep].to(dev)] = fb[keep.to(fb.device)].to(
-                dev, torch.int32)
+            rows = fb[keep.to(fb.device)].to(torch.int32)
+            packed[upload(idx[keep], dev)] = upload(rows, dev)
         return dec.decode(packed, ok)
 
     return step, win, pad_hw
 
 
-def _to_numpy(res: BatchResult) -> BatchResult:
-    return BatchResult(*[v.cpu().numpy() for v in res])
+def upload(a: Any, dev: torch.device) -> torch.Tensor:
+    """``a`` (numpy or a tensor) on ``dev``. A host array bound for a
+    card goes through pinned memory with a non-blocking copy: a copy from
+    pageable memory would make the host wait for the card."""
+    t = torch.as_tensor(a)
+    if dev.type != "cuda" or t.device.type != "cpu":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def to_host_later(res: Any) -> Callable[[], Any]:
+    """Start copying a result (a BatchResult, or any tuple of tensors and
+    arrays) to the host behind the work queued so far, without waiting;
+    returns a function that waits for those copies alone and gives every
+    field as numpy."""
+    host = [v.to("cpu", non_blocking=True) if torch.is_tensor(v) else v
+            for v in res]
+    done = None
+    for v in res:
+        if torch.is_tensor(v) and v.is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(v.device))
+            break
+
+    def fetch() -> Any:
+        if done is not None:
+            done.synchronize()
+        return type(res)(*[v.numpy() if torch.is_tensor(v)
+                           else np.asarray(v) for v in host])
+
+    return fetch
+
+
+def _to_numpy(res: Any) -> Any:
+    """``res`` on the host as numpy, with one wait for all its fields."""
+    return to_host_later(res)()
 
 
 def _error_codes(load_ok: torch.Tensor, match_ok: torch.Tensor,
@@ -382,19 +420,13 @@ def _error_codes(load_ok: torch.Tensor, match_ok: torch.Tensor,
     no_contours = ~has_any
     first_bad = torch.argmax(no_contours.to(i32), dim=1).to(i32)
     unreadable = ~readable
-    weights = torch.tensor([1 << d for d in range(D)], dtype=i32,
-                           device=readable.device)
-    bits = (unreadable.to(i32) * weights).sum(dim=1).to(i32)
-
-    def code(c: ErrCode) -> torch.Tensor:
-        return torch.tensor(int(c), dtype=i32, device=readable.device)
-
-    err = torch.where(
-        ~load_ok, code(ErrCode.LOAD),
-        torch.where(
-            ~match_ok, code(ErrCode.DIALS_NOT_FOUND),
-            torch.where(
-                no_contours.any(dim=1), code(ErrCode.NEEDLE_CONTOURS),
-                torch.where(unreadable.any(dim=1), code(ErrCode.DIAL_ANGLE),
-                            code(ErrCode.OK)))))
+    # built on the device from Python scalars: no host-to-device copy
+    weights = torch.arange(D, dtype=i32, device=readable.device)
+    bits = (unreadable.to(i32) << weights).sum(dim=1).to(i32)
+    err = torch.full_like(first_bad, int(ErrCode.OK))
+    for cond, c in ((unreadable.any(dim=1), ErrCode.DIAL_ANGLE),
+                    (no_contours.any(dim=1), ErrCode.NEEDLE_CONTOURS),
+                    (~match_ok, ErrCode.DIALS_NOT_FOUND),
+                    (~load_ok, ErrCode.LOAD)):
+        err = torch.where(cond, int(c), err)
     return err, first_bad, bits
