@@ -84,11 +84,26 @@ Runs from the root of a checkout, with nothing built beforehand:
    and --trace, then a run resumed from its --state; and calibrates
    (python3 -m meterelf_tpu_torch.calibration) over 64 flagship JPEGs at
    random offsets, card stdout equal to the CPU's;
-8. prints a JSON line of per-kernel results (launches from the
+8. runs the mesh (meterelf_tpu_torch.parallel.mesh) over every card:
+   make_mesh(), the flagship crop batch through MeshDecoder and 64
+   adversarial frames of tests/fuzz_frames.py as quality-92 JPEGs,
+   tiled to 256, through MeshCoefStep with 8 fallback slots (negative,
+   out of range, on either side of a shard boundary), each equal to the
+   plain decoder bit for bit in every field, its aggregate equal to a
+   numpy reduction and, bit for bit, to the same reduction over CPU
+   replicas, the kernels launched once a device; the warm dispatches
+   under set_sync_debug_mode("error"); the mesh against the plain path
+   in turns (crop decode and coefficient step to numpy, 10 rounds);
+   stream_decode_bytes over the mesh beside the plain stream; and the
+   stream CLI with --mesh all as a one-rank NCCL group
+   (METERELF_DISTRIBUTED=1), its lines equal to METERELF_DEVICE=cpu
+   --mesh 1's;
+9. prints a JSON line of per-kernel results (launches from the
    coefficient path; K6's from the general branch, K8's from the
    scorer-only branch, K5's and K7's from the merged + hist_pallas crop
-   decode, K9's from match_scores_v1), the card, then, only if every
-   phase passed, {"ok": true, "device": {...}} as the last line.
+   decode, K9's from match_scores_v1; "mesh_launches" from the mesh
+   phase's decode and step), the card, then, only if every phase
+   passed, {"ok": true, "device": {...}} as the last line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -153,6 +168,9 @@ N_LONG = 11       # its batches: timed over 2-5, profiled over 6-9, and
 LONG_TIMED = (1, 5)      # reports whose stamps bound the timed batches
 LONG_PROFILED = (5, 9)   # reports whose stamps bound the profiled ones
 N_CAL = 64        # calibration frames at random offsets
+N_FUZZ = 64       # mesh phase: distinct fuzz JPEGs, tiled to B_MAIN
+FUZZ_SEED = 2027  # their tests/fuzz_frames.py seed (the slots' is +1)
+MESH_ROUNDS = 10  # mesh phase: rounds of the in-turn timings
 
 # Rates of the bounds (NVIDIA H100 SXM at 700 W): HBM3 and the dense int8
 # tensor-core and fp32 peaks of NVIDIA's H100 SXM specification. int32:
@@ -327,10 +345,23 @@ def rising_tasks(camera) -> list:
                     for p in rng.uniform(0, 10, (N_CAL, 4))]
 
 
-def start_render(tasks: list, workers: int):
-    """Start render_jpeg over tasks in spawned processes that see no card
-    (they start at the submission); returns the pool and the iterator of
-    the JPEGs in order."""
+def fuzz_jpegs(task) -> list:
+    """tests/fuzz_frames.py's adversarial frames of a synthetic camera as
+    QUALITY JPEGs: task = (camera name, n, seed)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from fuzz_frames import fuzz_frames
+
+    from meterelf_tpu_torch import synthetic
+
+    name, n, seed = task
+    return [synthetic.encode_jpeg(f, QUALITY)
+            for f in fuzz_frames(getattr(synthetic, name), n, seed)]
+
+
+def start_render(tasks: list, workers: int, fn=render_jpeg):
+    """Start fn (render_jpeg) over tasks in spawned processes that see no
+    card (they start at the submission); returns the pool and the
+    iterator of the results in order."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -338,7 +369,7 @@ def start_render(tasks: list, workers: int):
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     try:
         pool = ProcessPoolExecutor(workers, mp.get_context("spawn"))
-        return pool, pool.map(render_jpeg, tasks, chunksize=4)
+        return pool, pool.map(fn, tasks, chunksize=4)
     finally:
         if old is None:
             os.environ.pop("CUDA_VISIBLE_DEVICES", None)
@@ -706,6 +737,10 @@ def main() -> int:
     t_rise = time.perf_counter()
     rise_pool, rise_jpegs = start_render(
         rising_tasks(synthetic.DEFAULT_CAMERA), FEED_THREADS)
+    # the mesh phase's fuzz JPEGs and its fallback slots' frames
+    fuzz_pool, fuzz_out = start_render(
+        [("DEFAULT_CAMERA", N_FUZZ, FUZZ_SEED),
+         ("DEFAULT_CAMERA", 8, FUZZ_SEED + 1)], 2, fuzz_jpegs)
     t0 = time.perf_counter()
     cam = synthetic.DEFAULT_CAMERA
     crops, true_pos = render(cam, B_MAIN, 1.7, 2.3)
@@ -2162,6 +2197,264 @@ def main() -> int:
                     p.wait()
             shutil.rmtree(tmp, ignore_errors=True)
 
+    def mesh_run() -> None:
+        """Data parallelism (meterelf_tpu_torch.parallel.mesh) over every
+        card: the flagship crop batch through MeshDecoder and N_FUZZ
+        fuzz JPEGs (tiled to B_MAIN, fallback slots on both sides of a
+        shard boundary) through MeshCoefStep, each bit for bit against
+        the plain decoder, with its aggregate; warm dispatches under
+        set_sync_debug_mode("error"); the mesh against the plain path in
+        turns; the stream over the mesh; and the stream CLI as a
+        one-rank NCCL group, its lines equal to the CPU's."""
+        import re
+        import shutil
+        import socket
+        import tempfile
+
+        from meterelf_tpu_torch import stream as st_mod
+        from meterelf_tpu_torch.parallel import mesh as mesh_mod
+        from meterelf_tpu_torch.pipeline.decode import to_host_later
+
+        def bits_equal(a, b, label) -> None:
+            for f in a._fields:
+                x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+                if x.dtype.kind == "f":
+                    x, y = x.view(f"u{x.itemsize}"), y.view(f"u{y.itemsize}")
+                check(x.dtype == y.dtype and np.array_equal(x, y),
+                      f"mesh {label}: {f} differs from the plain path")
+
+        def agg_check(agg, res, label) -> tuple:
+            """The aggregate against a numpy reduction of the host result
+            (counts exact, the mean within 1e-12 relative) and against
+            aggregate_metrics over CPU replicas (the same order of sums:
+            bit for bit)."""
+            ok = res.err == 0
+            got = (int(agg.n_ok), int(agg.n_err), float(agg.mean))
+            want = float(res.value[ok].mean()) if ok.any() else 0.0
+            check(got[:2] == (int(ok.sum()), int((~ok).sum())),
+                  f"mesh {label}: counts {got[:2]}")
+            check(abs(got[2] - want) <= 1e-12 * abs(want),
+                  f"mesh {label}: mean {got[2]!r}, numpy {want!r}")
+            cpu = mesh_mod.aggregate_metrics(
+                res.value, res.err,
+                mesh_mod.make_mesh(["cpu"] * len(mesh.devices)))
+            check(float(cpu.mean).hex() == float(agg.mean).hex(),
+                  f"mesh {label}: mean {got[2]!r} != CPU order "
+                  f"{float(cpu.mean)!r}")
+            return got
+
+        t0 = time.perf_counter()
+        with fuzz_pool:
+            fuzz, slot_jpegs = list(fuzz_out)
+        say(f"mesh: {N_FUZZ} + 8 fuzz JPEGs (tests/fuzz_frames.py, seed "
+            f"{FUZZ_SEED}) ready {time.perf_counter() - t0:.1f} s into the "
+            "phase")
+        mesh = mesh_mod.make_mesh()
+        n_dev = len(mesh.devices)
+        check(B_MAIN % mesh.size == 0, f"{B_MAIN} rows on {mesh.size} devices")
+        b = B_MAIN // n_dev
+        say(f"mesh: make_mesh() over {n_dev} device(s) "
+            f"{[str(d) for d in mesh.devices]}, size {mesh.size}, "
+            f"{b} rows a device; on {card}")
+        md = mesh_mod.MeshDecoder(dec, mesh)
+        mesh_kernels = crop_kernels + (jpeg_tail.backhalf_planes,)
+
+        # 1. the crop decode
+        to_host_later(md(crops[:8 * n_dev]))()     # warm-up
+        plain = dec.decode_numpy(crops)
+        reset(all_kernels)
+        res = md(crops)
+        agg = md.aggregate(res)
+        got = to_host_later(res)()
+        launches = counts(all_kernels)
+        want = {k: n_dev * int(k in ("frontend", "windows", "ccl", "stats"))
+                for k in launches}
+        check(launches == want, f"mesh decode launches {launches}")
+        bits_equal(got, plain, "crop decode")
+        check_readings("mesh crop decode", got, true_pos)
+        a = agg_check(agg, got, "crop decode")
+        say(f"mesh crop decode: B={B_MAIN} equal to MeterDecoder bit for bit "
+            f"in every field; launches {launches}; aggregate (n_ok, n_err, "
+            f"mean) = {a}")
+        mesh_launches = dict(launches)
+
+        # 2. the coefficient step on fuzz JPEGs with fallback slots
+        fz = [fuzz[i % N_FUZZ] for i in range(B_MAIN)]
+        feed = tio.load_coef_feed(fz, cam.meter_rect, FRAME_WH, pad_hw,
+                                  num_threads=FEED_THREADS)
+        check(feed[4].all(), "mesh: a fuzz JPEG did not load")
+        fb_packed, fb_ok = tio.load_packed_crops_from_bytes(
+            slot_jpegs, cam.meter_rect, pad_hw, num_threads=FEED_THREADS)
+        check(fb_ok.all(), "mesh: a slot frame did not load")
+        edge = b if n_dev > 1 else B_MAIN // 2
+        fb_idx = np.array([-1, B_MAIN, edge - 1, edge, -B_MAIN - 1, 5,
+                           edge + 7, -B_MAIN], np.int32)
+        fb_feed = feed[:5] + (fb_packed, fb_idx)
+        ms = mesh_mod.MeshCoefStep(dec, FRAME_WH, mesh)
+        plain_c = to_host_later(step(None, *fb_feed))()
+        reset(all_kernels)
+        res = ms(None, *fb_feed)
+        agg = ms.aggregate(res)
+        got_c = to_host_later(res)()
+        launches = counts(all_kernels)
+        want = {k: n_dev * int(k in ("frontend", "windows", "ccl", "stats",
+                                     "backhalf_planes")) for k in launches}
+        check(launches == want, f"mesh step launches {launches}")
+        bits_equal(got_c, plain_c, "coefficient step")
+        nofb = to_host_later(step(None, *feed))()
+        slots = [int(i) % B_MAIN for i in fb_idx
+                 if -B_MAIN <= int(i) < B_MAIN]
+        moved = [r for r in slots if nofb.match_x[r] != got_c.match_x[r]
+                 or nofb.match_y[r] != got_c.match_y[r]
+                 or nofb.value[r] != got_c.value[r]]
+        check(moved == slots, f"mesh: slot rows {slots}, changed {moved}")
+        check(got_c.converged.all(), "mesh step: not converged")
+        a = agg_check(agg, got_c, "coefficient step")
+        kinds = {int(e): int((got_c.err == e).sum())
+                 for e in np.unique(got_c.err)}
+        say(f"mesh coefficient step: {N_FUZZ} fuzz JPEGs tiled to {B_MAIN} "
+            f"(K10 plane feed) with fallback slots {fb_idx.tolist()} (rows "
+            f"{slots} taken; shard edge at {edge}): equal to the plain step "
+            f"bit for bit in every field; error codes {kinds}; launches "
+            f"{launches}; aggregate {a}")
+        for k, n in launches.items():
+            mesh_launches[k] += n
+        for k, n in mesh_launches.items():
+            results[k]["mesh_launches"] = n
+
+        # 3. warm dispatches never wait for the card
+        calls = {
+            "MeshDecoder (u8 crops)": lambda: md(crops),
+            "MeshCoefStep with fallback slots": lambda: ms(None, *fb_feed),
+            "stream dispatch (MeshCoefStep, aggregate, pulls queued)":
+                lambda: st_mod._fetch_later(*(lambda r: (r, ms.aggregate(r)))(
+                    ms(None, *fb_feed))),
+        }
+        bad = []
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            except RuntimeError:
+                bad.append(name)
+                say(f"mesh dispatch sync: {name} synchronised:\n"
+                    f"{traceback.format_exc()}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        check(not bad, f"mesh dispatches that wait on the card: {bad}")
+        say(f"mesh dispatch sync: {len(calls)} warm dispatches raise nothing "
+            f"under torch.cuda.set_sync_debug_mode('error'): {list(calls)}")
+
+        # 4. the mesh against the plain path, in turns
+        host_feed = feed[:5] + (fb_packed, fb_idx)
+        fns = {
+            "plain crop decode": lambda: dec.decode_numpy(crops),
+            "mesh crop decode": lambda: to_host_later(md(crops))(),
+            "plain coefficient step": lambda: to_host_later(
+                step(None, *host_feed))(),
+            "mesh coefficient step": lambda: to_host_later(
+                ms(None, *host_feed))(),
+        }
+        times = {k: [] for k in fns}
+        for r in range(MESH_ROUNDS):
+            for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fns[k]()
+                times[k].append((time.perf_counter() - t) * 1e3)
+        for k, v in times.items():
+            say(f"mesh in turns on {card}: {k} to numpy (B={B_MAIN}): median "
+                f"{np.median(v):.3f} ms [{min(v):.3f}, {max(v):.3f}] over "
+                f"{MESH_ROUNDS} rounds")
+        state["mesh_times"] = times
+
+        # 5. the stream over the mesh beside the plain stream, in turns
+        jpegs = state.get("cli_jpegs") or datas
+        n = B_LONG * N_LONG
+        frames = [(f"m{i:05d}.jpg", jpegs[i % B_MAIN]) for i in range(n)]
+        params = cam.make_params()
+        rates = {"plain": [], "mesh": []}
+        for k in ("plain", "mesh", "mesh", "plain"):
+            stamps = []
+            last = None
+            for last in st_mod.stream_decode_bytes(
+                    params, iter(frames), FRAME_WH, decoder=dec,
+                    batch_size=B_LONG, num_threads=FEED_THREADS,
+                    mesh=mesh if k == "mesh" else None):
+                stamps.append(time.perf_counter())
+                if k == "mesh":
+                    check(last.device_agg is not None
+                          and last.device_agg[:2] == (B_LONG, 0),
+                          f"mesh stream report {last}")
+            check(len(stamps) == N_LONG and last.frames_ok == n,
+                  f"stream {k}: {len(stamps)} reports, {last}")
+            lo, hi = LONG_TIMED
+            rates[k].append(B_LONG * (hi - lo) / (stamps[hi] - stamps[lo]))
+        say(f"mesh stream on {card}: stream_decode_bytes(mesh=make_mesh()) "
+            f"{', '.join(f'{r:.0f}' for r in rates['mesh'])} images/s, plain "
+            f"{', '.join(f'{r:.0f}' for r in rates['plain'])} images/s "
+            f"(num_threads={FEED_THREADS}, B={B_LONG}, batches "
+            f"{LONG_TIMED[0] + 1}-{LONG_TIMED[1]} of {N_LONG}; order plain, "
+            "mesh, mesh, plain); every mesh report carries device_agg")
+
+        # 6. the stream CLI as a one-rank NCCL group, against the CPU
+        names, rjpegs, _pos = state["rise"]
+        tmp = tempfile.mkdtemp(prefix="meterelf_mesh_")
+        procs = []
+        try:
+            yml = cam.write_params(os.path.join(tmp, "params"))
+            files = []
+            for nm, data in zip(names[:N_SHORT], rjpegs[:N_SHORT]):
+                files.append(os.path.join(tmp, nm))
+                with open(files[-1], "wb") as fp:
+                    fp.write(data)
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                port = sk.getsockname()[1]
+            args = [yml, *files, "--coef", "640x480", "--batch",
+                    str(B_SHORT), "--mesh"]
+            t = time.perf_counter()
+            procs.append(start_module(
+                "meterelf_tpu_torch.stream", args + ["all"],
+                METERELF_DISTRIBUTED="1", METERELF_NUM_PROCS="1",
+                METERELF_PROC_ID="0",
+                METERELF_COORDINATOR=f"127.0.0.1:{port}"))
+            # 4 threads: the CPU run shares the host with the card's feed
+            procs.append(start_module("meterelf_tpu_torch.stream",
+                                      args + ["1"], METERELF_DEVICE="cpu",
+                                      OMP_NUM_THREADS="4"))
+            outs = []
+            for p, label in zip(procs, ("card (NCCL)", "cpu")):
+                o, e = p.communicate(timeout=600)
+                check(p.returncode == 0,
+                      f"mesh cli {label} exited {p.returncode}: {e[-3000:]}")
+                outs.append(([re.sub(r"rate=\d+img/s", "rate=*", x)
+                              for x in o.splitlines()], e))
+            wall = time.perf_counter() - t
+            (card_lines, card_err), (cpu_lines, _) = outs
+            check(card_lines == cpu_lines, "mesh cli: card lines != CPU "
+                  f"lines{first_difference(card_lines, cpu_lines)}")
+            check(len(card_lines) == N_SHORT // B_SHORT and all(
+                " mesh[ok=" in x for x in card_lines),
+                f"mesh cli lines: {card_lines}")
+            warn = [x for x in card_err.splitlines() if "NCCL" in x
+                    or "destroy_process_group" in x]
+            say(f"mesh cli: python3 -m meterelf_tpu_torch.stream --coef "
+                f"640x480 --batch {B_SHORT} --mesh all over {N_SHORT} rising "
+                "frames as a one-rank NCCL group (METERELF_DISTRIBUTED=1) "
+                "equals METERELF_DEVICE=cpu --mesh 1 line for line (rate= "
+                f"masked); both in parallel {wall:.1f} s; NCCL lines on "
+                f"stderr: {warn[:5]}; last line {card_lines[-1]!r}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+
     if not failures:
         phase("crop decode path", crop_run)
         phase("coefficient path", coef_run)
@@ -2176,7 +2469,9 @@ def main() -> int:
         phase("cli", cli_run)
         phase("stream", stream_run)
         phase("calibration", calibration_run)
+        phase("mesh", mesh_run)
 
+    fuzz_pool.shutdown(cancel_futures=True)   # joined by the mesh phase
     kernels = [results[k] for k in REPLACES]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -21,9 +21,12 @@ classic water-leak heuristic (no sustained zero-flow period), robust to
 a single flat inter-frame step.
 
 The decoder runs on ``device`` (None: the environment's
-``METERELF_DEVICE``, default ``cuda``); without a card it raises.
-Multi-GPU streaming (the JAX package's ``mesh=`` and ``--mesh``) is not
-ported: it raises, and the CLI exits 1.
+``METERELF_DEVICE``, default ``cuda``); without a card it raises. With
+``mesh=`` (parallel/mesh.make_mesh) every batch is split by rows over
+the mesh's devices, one decoder replica a device, and each report
+carries the batch's metrics reduced across the mesh (``device_agg``);
+the CLI's ``--mesh N|all`` does the same over the first N devices of
+``METERELF_DEVICE``.
 """
 from __future__ import annotations
 
@@ -34,15 +37,13 @@ from typing import (Any, Iterable, Iterator, List, Optional, Sequence,
                     Tuple)
 
 import numpy as np
+import torch
 
 from .api import device_from_env
 from .errors import ErrCode
 from .params import Params
 from .pipeline.decode import MeterDecoder, to_host_later
 from .profiling import StageTimers
-
-MESH_NOT_PORTED = ("multi-GPU streaming (mesh=, --mesh) is not ported to "
-                   "meterelf_tpu_torch yet")
 
 
 @dataclass
@@ -57,8 +58,9 @@ class StreamReport:
     flow_lph: Optional[float]            # liters/hour over the window
     leak_suspected: bool
     images_per_sec: float
-    # the JAX package's mesh-reduced (n_ok, n_err, mean) of a batch; the
-    # port streams on one device, so it is always None
+    # mesh mode only: this batch's (n_ok, n_err, mean value over ok)
+    # reduced on the devices and across processes
+    # (parallel/mesh.aggregate_metrics); full batches only
     device_agg: Optional[Tuple[int, int, float]] = None
 
 
@@ -121,9 +123,38 @@ def _unwrap_delta(prev: float, new: float) -> float:
     return max(delta, 0.0)
 
 
-def _check_no_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+def _check_mesh(batch_size: int, mesh: Any) -> None:
+    if batch_size % mesh.size != 0:   # survives python -O
+        raise ValueError(
+            f"batch_size {batch_size} not divisible by mesh size "
+            f"{mesh.size}")
+
+
+def _fetch_later(res: Any, agg: Any) -> Any:
+    """Queue the pulls of a dispatched batch's result and of its mesh
+    aggregate (None without a mesh) behind its work; returns a function
+    that waits for them and gives (result, aggregate) on the host. The
+    aggregate's pull is queued first, so the result's one wait covers
+    both."""
+    pull_agg = to_host_later(agg) if agg is not None else None
+    pull = to_host_later(res)
+
+    def fetch() -> Tuple[Any, Any]:
+        out = pull()
+        return out, (pull_agg() if pull_agg is not None else None)
+
+    return fetch
+
+
+def _reaggregate(dec: Any, mesh: Any) -> Any:
+    """The reduction a rescued batch's host result takes again: the mesh
+    decoder's aggregate on one process. With several processes the
+    dispatched aggregate stands (a rescue is one process's affair, and a
+    collective that only it entered would never end), so there
+    ``device_agg`` counts a rescued row as first decoded."""
+    if mesh is None or mesh.group is not None:
+        return None
+    return dec.aggregate
 
 
 def stream_decode(
@@ -153,11 +184,21 @@ def stream_decode(
     Yields a StreamReport per batch. Dispatch is pipelined: batch k+1 is
     enqueued before batch k's results are pulled to the host. Without
     ``decoder``, a MeterDecoder(exact=True) on ``device`` decodes.
-    ``mesh`` raises: multi-GPU streaming is not ported.
+
+    With ``mesh`` (parallel/mesh.make_mesh), each batch is split over the
+    mesh's devices (parallel/mesh.MeshDecoder) and every full batch's
+    report carries ``device_agg``, its metrics reduced across the mesh;
+    the reduction is queued with the batch and read with its result.
+    batch_size must be a multiple of the mesh size (the final short
+    batch is padded up).
     """
-    _check_no_mesh(mesh)
     dec = decoder or MeterDecoder(params, exact=True,
                                   device=device_from_env(device))
+    if mesh is not None:
+        from .parallel.mesh import MeshDecoder
+
+        _check_mesh(batch_size, mesh)
+        dec = MeshDecoder(dec, mesh)
 
     def emit(buf_names, buf_crops):
         pad = batch_size - len(buf_names)
@@ -186,7 +227,9 @@ def stream_decode(
 
     def dispatch(crops):
         # the card starts while the host loops
-        return to_host_later(dec(crops))
+        res = dec(crops)
+        return _fetch_later(res, dec.aggregate(res) if mesh is not None
+                            else None)
 
     def rescue(crops, res):
         # pathological masks defeated the corpus-tuned CCL caps:
@@ -205,7 +248,8 @@ def stream_decode(
                         window_seconds=window_seconds,
                         leak_min_flow_lph=leak_min_flow_lph,
                         leak_bins=leak_bins, timestamps=timestamps,
-                        timers=timers, state=state)
+                        timers=timers, agg=_reaggregate(dec, mesh),
+                        state=state)
 
 
 def _feed_worker_run(task):
@@ -332,16 +376,26 @@ def stream_decode_bytes(
 
     With `feed_workers` = N > 0 the host entropy stage fans out over N
     subprocess workers (FeedWorkerPool), else over ``num_threads``
-    threads in this process. ``mesh`` raises: multi-GPU streaming is not
-    ported."""
+    threads in this process.
+
+    With ``mesh``, each batch's coefficient windows are split over the
+    mesh's devices (parallel/mesh.MeshCoefStep) and full batches' reports
+    carry ``device_agg``, as in stream_decode: the whole bytes-to-readings
+    path on every device."""
     from .io import jpeg as jio
     from .ops.jpegdec import backhalf_ok
     from .pipeline.decode import make_coef_decode_fn
 
-    _check_no_mesh(mesh)
     dec = decoder or MeterDecoder(params, exact=True,
                                   device=device_from_env(device))
     step, _win, pad_hw = make_coef_decode_fn(dec, frame_wh)
+    mesh_step = None
+    if mesh is not None:
+        from .parallel.mesh import MeshCoefStep
+
+        _check_mesh(batch_size, mesh)
+        mesh_step = MeshCoefStep(dec, frame_wh, mesh)
+        step = mesh_step
     # one wire for the workers and the in-process feed
     compact = jio.compact_default()
     pool = None
@@ -378,7 +432,9 @@ def stream_decode_bytes(
             feed = jio.load_coef_feed(datas, params.meter_rect, frame_wh,
                                       pad_hw, num_threads=num_threads,
                                       compact=compact)
-        return to_host_later(step(dec.param_arrays, *feed))
+        res = step(dec.param_arrays, *feed)
+        return _fetch_later(res, mesh_step.aggregate(res)
+                            if mesh_step is not None else None)
 
     def rescue(datas, res):
         crops, ok = jio.load_crop_bytes_u8(datas, params.meter_rect,
@@ -392,7 +448,8 @@ def stream_decode_bytes(
                 window_seconds=window_seconds,
                 leak_min_flow_lph=leak_min_flow_lph,
                 leak_bins=leak_bins, timestamps=timestamps,
-                timers=timers, state=state)
+                timers=timers, agg=_reaggregate(mesh_step, mesh),
+                state=state)
         finally:
             if pool is not None:
                 pool.close()
@@ -410,11 +467,14 @@ def _stream_core(
     leak_bins: int,
     timestamps: Optional[Iterable[float]],
     timers: Optional[StageTimers],
+    agg=None,
     state: Optional[_StreamState] = None,
 ) -> Iterator[StreamReport]:
     """Shared pipelined drain/report loop: batch k+1 is dispatched
     before batch k's results are pulled to the host. ``dispatch``
-    returns a function that gives the batch's result on the host."""
+    returns a function that gives the batch's result and its mesh
+    aggregate (or None) on the host (_fetch_later); ``agg`` reduces a
+    rescued result again (None: the dispatched aggregate stands)."""
     state = state if state is not None else _StreamState()
     tm = timers if timers is not None else StageTimers()
     t_start = time.time()
@@ -423,10 +483,19 @@ def _stream_core(
     ts_iter = iter(timestamps) if timestamps is not None else None
 
     def drain(names, payload, fetch) -> StreamReport:
-        res = fetch()   # the one wait for this batch's result
+        res, batch_agg = fetch()   # the one wait for this batch's result
         if not bool(np.asarray(res.converged).all()):
             with tm.stage("rescue"):
                 res = rescue(payload, res)
+                if batch_agg is not None and agg is not None:
+                    batch_agg = to_host_later(agg(res))()
+        device_agg = None
+        if batch_agg is not None \
+                and len(names) == np.asarray(res.value).shape[0]:
+            # full batches only: a padded final batch would count its
+            # zero-filled pad rows as errors
+            n_ok, n_err, mean_v = batch_agg
+            device_agg = (int(n_ok), int(n_err), float(mean_v))
         err = np.asarray(res.err)[: len(names)]
         values = np.asarray(res.value)[: len(names)]
         now = time.time()
@@ -473,6 +542,7 @@ def _stream_core(
             flow_lph=flow,
             leak_suspected=leak,
             images_per_sec=(state.frames_total - start_total) / elapsed,
+            device_agg=device_agg,
         )
 
     for names, payload in batch_iter:
@@ -636,6 +706,18 @@ USAGE = ("usage: python -m meterelf_tpu_torch.stream PARAMS_FILE "
          "[--state FILE] [--debug-http PORT]")
 
 
+def _mesh_devices(spec: str, dev: torch.device) -> List[torch.device]:
+    """``--mesh N|all``: the first N devices of ``dev``'s kind (a CUDA
+    device with an index stands alone), every one for ``all``; on the
+    CPU, N replicas of the CPU device (``all``: one)."""
+    if dev.type == "cpu":
+        return [dev] * (1 if spec == "all" else int(spec))
+    devs = ([dev] if dev.index is not None else
+            [torch.device(dev.type, i)
+             for i in range(torch.cuda.device_count())])
+    return devs if spec == "all" else devs[:int(spec)]
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     """CLI for the continuous-replay streaming mode:
     `python -m meterelf_tpu_torch.stream PARAMS_FILE [IMAGE...]
@@ -645,6 +727,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     `--coef WxH` streams raw JPEG bytes of WxH frames through the
     coefficient feed (`--feed-workers N`: N entropy subprocesses).
+
+    `--mesh N|all` splits every batch data-parallel over the first N
+    devices of METERELF_DEVICE (all: every one; N past the cards
+    truncates, as the JAX package's does; on `cpu`, N replicas of the CPU
+    device, `all` one) and appends the mesh-reduced metrics of each full
+    batch to its report line, ` mesh[ok= err= mean=]`. It composes with
+    `--coef`. Multi-process runs set METERELF_DISTRIBUTED=1 with
+    METERELF_COORDINATOR, METERELF_NUM_PROCS and METERELF_PROC_ID
+    (parallel/mesh.py): the mesh then spans every process's devices,
+    over NCCL on the card and gloo on the CPU.
 
     `--watch DIR` runs as a daemon over a camera spool directory: new
     *.jpg files are decoded as they appear (`--poll S` seconds between
@@ -663,8 +755,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     drain / rescue) to stderr when the stream ends; `--trace DIR`
     writes a torch.profiler trace of the whole stream into DIR;
     `--debug-http PORT` serves the newest frame's overlay at
-    http://localhost:PORT/ (debugviz.serve_overlays). `--mesh` exits 1:
-    multi-GPU streaming is not ported.
+    http://localhost:PORT/ (debugviz.serve_overlays).
     """
     import sys
 
@@ -712,10 +803,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if len(args) < (1 if watch_dir else 2):
         print(USAGE, file=sys.stderr)
         raise SystemExit(1)
+    mesh = None
     if mesh_arg is not None:
-        print(f"--mesh {mesh_arg}: {MESH_NOT_PORTED}", file=sys.stderr)
-        print(USAGE, file=sys.stderr)
-        raise SystemExit(1)
+        from .parallel.mesh import initialize_distributed, make_mesh
+
+        initialize_distributed()  # no-op unless METERELF_DISTRIBUTED=1
+        mesh = make_mesh(_mesh_devices(mesh_arg, device_from_env()))
     params = Params.load(args[0])
     timestamps = None
     if watch_dir is not None:
@@ -770,10 +863,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     def reports():
         if coef_wh is not None:
             return stream_decode_bytes(
-                params, frames, coef_wh, batch_size=batch,
+                params, frames, coef_wh, batch_size=batch, mesh=mesh,
                 feed_workers=feed_workers,
                 timestamps=timestamps, timers=timers, state=st)
-        return stream_decode(params, frames, batch_size=batch,
+        return stream_decode(params, frames, batch_size=batch, mesh=mesh,
                              timestamps=timestamps, timers=timers,
                              state=st)
 
@@ -784,18 +877,28 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         else f"{rep.flow_lph:.3f}")
                 last = ("?" if rep.last_value is None
                         else f"{rep.last_value:07.3f}")
+                agg_sfx = ""
+                if rep.device_agg is not None:
+                    n_ok, n_err, mean_v = rep.device_agg
+                    agg_sfx = (f" mesh[ok={n_ok} err={n_err} "
+                               f"mean={mean_v:.3f}]")
                 print(
                     f"frames={rep.frames_total} ok={rep.frames_ok} "
                     f"err={rep.frames_error} last={last} "
                     f"cum={rep.cumulative_liters:.3f}L flow={flow}L/h "
                     f"leak={'YES' if rep.leak_suspected else 'no'} "
-                    f"rate={rep.images_per_sec:.0f}img/s", flush=True)
+                    f"rate={rep.images_per_sec:.0f}img/s{agg_sfx}",
+                    flush=True)
                 if state_path and st is not None:
                     save_state(st, state_path)
     finally:
         if srv is not None:
             srv.shutdown()
             srv.server_close()
+        if mesh is not None:
+            from .parallel.mesh import shutdown_distributed
+
+            shutdown_distributed()
     if timers is not None:
         print(timers.report(), file=sys.stderr)
 

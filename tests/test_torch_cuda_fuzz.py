@@ -1,18 +1,32 @@
-"""The on-card fuzz gate, crop-decode legs (marked ``cuda``; each test
-skips where torch.cuda.is_available() is False): adversarial frames of
+"""The on-card fuzz gate (marked ``cuda``; each test skips where
+torch.cuda.is_available() is False): adversarial frames of
 tests/fuzz_frames.py (random angles, carry boundaries, stub needles,
 speckle, needle-coloured blobs near the dials) from the port's DEFAULT,
-ALT and FIVE_DIAL cameras, decoded on the card and by the same decoder on
-the CPU (the plain versions, which the CPU suite holds equal to the JAX
-package), every field compared. Legs: the default decode (the quad
-branch; FIVE_DIAL takes the general branch) and the merged + hist_pallas
-variant (K5, K6, K7 on the quad branch; the knobs leave the general branch
-as it is). Run where the card is, without JAX (``--noconftest`` skips
-tests/conftest.py, which sets JAX up):
+ALT and FIVE_DIAL cameras. Run where the card is, without JAX
+(``--noconftest`` skips tests/conftest.py, which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_cuda_fuzz.py -q
 
-METERELF_TPU_FUZZ_N sets the frames a camera (256 by default).
+METERELF_TPU_FUZZ_N sets the frames a camera (256 by default). The legs,
+ports of tests/test_tpu_fuzz.py's:
+
+- crop decodes, on the card and by the same decoder on the CPU (the
+  plain versions, which the CPU suite holds equal to the JAX package),
+  every field compared: the default decode (the quad branch; FIVE_DIAL
+  takes the general branch), the merged + hist_pallas variant (K5, K6,
+  K7 on the quad branch; the knobs leave the general branch as it is)
+  and the scorer-only branch (``static_win_origin=None``, as
+  chip_smoke.py builds it: K8 where its gate admits the camera, then K2
+  and K6);
+- JPEG: the frames as quality-92 JPEGs (synthetic.encode_jpeg) through
+  the coefficient feed and make_coef_decode_fn's step on the card,
+  against the pixel path on the same bytes (load_packed_crops_from_bytes
+  -> decode_numpy, on the card), every field: the plane feed (K10), and
+  the camera's window sent down the block branch (the plain IDCT and
+  K11) by load_coef_feed_shard(plane=False). That is the branch of the
+  windows K10 refuses, taken here by a camera's window: K10 refuses no
+  window of a camera-sized crop inside the valid chroma, its one refusal
+  there being shared memory, from windows 4,848 luma px wide.
 """
 import os
 
@@ -23,8 +37,12 @@ import torch
 from fuzz_frames import fuzz_frames
 from meterelf_tpu_torch import synthetic
 from meterelf_tpu_torch.errors import ErrCode
-from meterelf_tpu_torch.ops import ccl, frontend, stats, windows
-from meterelf_tpu_torch.pipeline.decode import MeterDecoder
+from meterelf_tpu_torch.io import jpeg as tio
+from meterelf_tpu_torch.ops import (ccl, frontend, jpeg_tail, jpegdec, match,
+                                    stats, windows)
+from meterelf_tpu_torch.pipeline.decode import (MeterDecoder,
+                                                make_coef_decode_fn,
+                                                to_host_later)
 
 torch.set_num_threads(4)
 
@@ -37,7 +55,10 @@ LEGS = {"default": {}, "merged_hist_pallas": {"frontend": "merged",
                                               "quad_stats": "hist_pallas"}}
 ANGLE_TOL = 1e-9   # f64 angle sums run in another order on the card
 KERNELS = (frontend.frontend, windows.windows, ccl.ccl, stats.stats,
-           frontend.frontend_windows, ccl.propagate, stats.stats_select)
+           frontend.frontend_windows, ccl.propagate, stats.stats_select,
+           match.match_scores, jpeg_tail.backhalf_planes,
+           jpeg_tail.upsample_color_pack)
+QUALITY = 92
 
 
 def n_frames() -> int:
@@ -118,3 +139,71 @@ def test_fuzz_frames_on_card_equal_cpu(dev, crops, cam, leg):
     assert {k for k, n in ran.items() if n} == want, ran
     # the fuzz mix reaches past the easy rows
     assert (a.err != int(ErrCode.OK)).any() or n_frames() < 32
+
+
+def launched(before) -> set:
+    return {k.__name__ for k, n in zip(KERNELS, before) if k.launches > n}
+
+
+def assert_same_bits(a, b, label):
+    """Two decodes on the card: every field equal, floats bit for bit."""
+    for f in a._fields:
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if x.dtype.kind == "f":
+            x, y = x.view(f"u{x.itemsize}"), y.view(f"u{y.itemsize}")
+        np.testing.assert_array_equal(x, y, err_msg=f"{label}: {f}")
+
+
+@pytest.mark.parametrize("cam", ["alt", "default"])
+def test_fuzz_scorer_only_on_card_equal_cpu(dev, crops, cam):
+    """The scorer-only branch (static_win_origin=None) on n_frames() fuzz
+    frames: the card's decode equals the CPU's in every field; the card
+    ran K8 (where match.fits admits the camera: the flagship, not ALT,
+    whose scores take the matmul scorer), K2 and K6 and nothing of the
+    quad branch."""
+    camera, batch = CAMERAS[cam], crops(cam)
+    decs = [MeterDecoder(camera.make_params(), device=d)
+            for d in (dev, "cpu")]
+    for d in decs:
+        d.static_kwargs["static_win_origin"] = None
+    before = [k.launches for k in KERNELS]
+    a = decs[0].decode_numpy(batch)
+    ran = launched(before)
+    assert_decodes_equal(a, decs[1].decode_numpy(batch), f"{cam} scorer")
+    (x0, y0), (x1, y1) = camera.meter_rect
+    k8 = match.fits(y1 - y0, x1 - x0, camera.template_h, camera.template_w)
+    assert k8 == (cam == "default")
+    assert ran == {"windows", "propagate"} | ({"match_scores"} if k8
+                                               else set()), ran
+    assert (a.err != int(ErrCode.OK)).any() or n_frames() < 32
+
+
+@pytest.mark.parametrize("layout", ["plane", "block"])
+@pytest.mark.parametrize("cam", ["alt", "default"])
+def test_fuzz_jpeg_on_card_equal_pixel_path(dev, cam, layout):
+    """n_frames() fuzz frames as quality-92 JPEGs: the coefficient step on
+    the card (K10 on the plane feed, the plain IDCT and K11 on the block
+    feed) equals the pixel path's decode of the same bytes on the card,
+    every field bit for bit; every frame loads and converges."""
+    camera = CAMERAS[cam]
+    rect, frame_wh = camera.meter_rect, (camera.frame_w, camera.frame_h)
+    frames = fuzz_frames(camera, n_frames(), seed=len(cam) * 1013 + 23)
+    datas = [synthetic.encode_jpeg(f, QUALITY) for f in frames]
+    dec = MeterDecoder(camera.make_params(), device=dev)
+    step, win, pad_hw = make_coef_decode_fn(dec, frame_wh)
+    assert jpegdec.backhalf_ok(win, pad_hw)
+    feed = tio.load_coef_feed_shard(datas, tuple(win), layout == "plane",
+                                    rect, frame_wh, pad_hw, num_threads=4)
+    assert feed[4].all() and (feed[6] == len(datas)).all()
+    before = [k.launches for k in KERNELS]
+    got = to_host_later(step(None, *feed))()
+    ran = launched(before)
+    packed, ok = tio.load_packed_crops_from_bytes(datas, rect, pad_hw,
+                                                  num_threads=4)
+    assert ok.all()
+    ref = dec.decode_numpy(packed, ok)
+    assert got.converged.all(), "CCL non-convergence under fuzz"
+    assert_same_bits(got, ref, f"{cam} {layout} coef vs pixel")
+    tail = "backhalf_planes" if layout == "plane" else "upsample_color_pack"
+    assert ran == {"frontend", "windows", "ccl", "stats", tail}, ran
+    assert (got.err != int(ErrCode.OK)).any() or n_frames() < 32

@@ -388,8 +388,11 @@ def test_main_lines_equal(files, coef, tmp_path):
 
 def test_main_usage_and_mesh(files):
     """A usage error exits 1 with the JAX package's usage line (the
-    module name aside); --mesh, which the port refuses, exits 1 with a
-    message and the usage line."""
+    module name aside); `--mesh 2 --repeat 2 --batch 8` over 10 files
+    prints, with rate= masked, the JAX CLI's lines on two of its virtual
+    CPU devices (the port's: two replicas of the CPU device), the
+    ` mesh[ok= err= mean=]` suffix on the two full batches and not on
+    the padded third."""
     errs = {}
     for pkg, main in (("jax", j_stream.main), ("torch", t_stream.main)):
         err = io.StringIO()
@@ -400,17 +403,65 @@ def test_main_usage_and_mesh(files):
         errs[pkg] = err.getvalue()
     assert errs["torch"].replace("meterelf_tpu_torch", "meterelf_tpu") \
         == errs["jax"]
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as e, \
-            mock.patch.dict(os.environ, CPU):
-        t_stream.main([files.yml, *files.paths[:2], "--mesh", "2"])
-    assert e.value.code == 1
-    assert "multi-GPU" in err.getvalue() and "usage:" in err.getvalue()
-    for fn in (t_stream.stream_decode, t_stream.stream_decode_bytes):
-        args = (None, []) if fn is t_stream.stream_decode else (
-            None, [], FRAME_WH)
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            fn(*args, mesh=object())
+    lines = {}
+    for pkg, main in (("jax", j_stream.main), ("torch", t_stream.main)):
+        with files.patch:
+            lines[pkg] = _main_lines(main, [
+                files.yml, *files.paths[:10], "--repeat", "2", "--batch",
+                "8", "--mesh", "2"], CPU)[0]
+    assert lines["torch"] == lines["jax"]
+    assert len(lines["torch"]) == 3
+    assert all(" mesh[ok=8 err=0 mean=" in x for x in lines["torch"][:2])
+    assert "mesh[" not in lines["torch"][2]
+
+
+_MESH_REFS: dict = {}
+
+
+@pytest.mark.parametrize("kind", ["crops", "bytes", "bytes_workers"])
+def test_stream_mesh_equal(cam, kind):
+    """stream_decode(mesh=) and stream_decode_bytes(mesh=) (also with
+    feed_workers=2) on two CPU replicas: every report equals the
+    single-device stream's but for device_agg, which full batches alone
+    carry (batches 8, 8, 5, 8, 3: the first, second and fourth), and
+    every report equals the JAX stream's on two virtual CPU devices,
+    device_agg included (the JAX feed-worker mesh stream equals its
+    in-process one: tests/test_stream.py)."""
+    from meterelf_tpu.parallel import mesh as j_mesh
+    from meterelf_tpu_torch.parallel import mesh as t_mesh
+
+    import jax
+
+    tmesh = t_mesh.make_mesh(["cpu"] * 2)
+    jmesh = j_mesh.make_mesh(jax.devices("cpu")[:2])
+    if kind == "crops":
+        frames = _with_flushes(list(zip(cam.names, cam.crops)))
+
+        def run(mod, params, dec, **kw):
+            return list(mod.stream_decode(params, frames, decoder=dec,
+                                          batch_size=8, timestamps=cam.ts,
+                                          **kw))
+    else:
+        items = _with_flushes(list(zip(cam.names, cam.jpegs)))
+
+        def run(mod, params, dec, **kw):
+            return list(mod.stream_decode_bytes(
+                params, items, FRAME_WH, decoder=dec, batch_size=8,
+                timestamps=cam.ts, **kw))
+    workers = {"feed_workers": 2} if kind == "bytes_workers" else {}
+    got = run(t_stream, cam.tparams, cam.tdec, mesh=tmesh, **workers)
+    key = (cam.name, kind == "crops")   # the references a feed shares
+    if key not in _MESH_REFS:
+        _MESH_REFS[key] = (run(t_stream, cam.tparams, cam.tdec),
+                           run(j_stream, cam.jparams, cam.jdec, mesh=jmesh))
+    single, ref = _MESH_REFS[key]
+    assert _fields(got) == _fields(ref)
+    assert [f | {"device_agg": None} for f in _fields(got)] \
+        == _fields(single)
+    assert [i for i, r in enumerate(got) if r.device_agg is not None] \
+        == [0, 1, 3]
+    n_ok, n_err, mean = got[0].device_agg
+    assert (n_ok, n_err) == (8, 0) and got[1].device_agg[:2] == (7, 1)
 
 
 def test_main_profile_and_trace(files, tmp_path):
