@@ -1,0 +1,13 @@
+"""frontend_roofline (%): K1, the frontend (ops/frontend.py,
+csrc/frontend.cu): the least time of its work at the cell's shapes
+(harness/roofline.py) over its profiler time a batch in the traced
+window; None where it did not run."""
+from harness import roofline
+
+
+def read(w):
+    s = w.kernel_s("frontend_kernel")
+    if s is None:
+        return None
+    bound = roofline.frontend_ms(w.context["cfg"], w.context["batch"])
+    return 100.0 * bound / (1e3 * s / w.units)
