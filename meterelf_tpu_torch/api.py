@@ -34,6 +34,7 @@ from .errors import (
 )
 from .io import jpeg as jpeg_io
 from .params import Params, load as load_params
+from .profiling import span
 from .pipeline.decode import BatchResult, MeterDecoder
 
 
@@ -190,9 +191,11 @@ def get_meter_values(
                 datas.append(b"")
         datas += [b""] * (batch_size - len(batch))
         # one C pass: decode + crop + pack into the decoder's layout
-        packed, ok = jpeg_io.load_packed_crops_from_bytes(
-            datas, params.meter_rect, dec.feed_pad_hw)
-        res = dec.decode_numpy(packed, ok)
+        with span("meterelf.api.host_decode"):
+            packed, ok = jpeg_io.load_packed_crops_from_bytes(
+                datas, params.meter_rect, dec.feed_pad_hw)
+        with span("meterelf.api.decode_numpy"):
+            res = dec.decode_numpy(packed, ok)
         for i, fn in enumerate(batch):
             data = result_to_data(fn, res, i, params)
             if data.error is not None:

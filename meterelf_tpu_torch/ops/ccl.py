@@ -18,7 +18,8 @@ once.
 
 ``analyze_batch`` is components.analyze_batch on this branch: K6, then
 components.finalize (the quad branch under METERELF_QUAD_STATS != fused
-runs it too).
+runs it too), in the spans ``meterelf.decode.ccl`` and
+``meterelf.decode.stats``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from .. import _build
+from ..profiling import span
 from . import components
 from .components import W
 from .launch import check_cuda, raise_on_error, stream_of
@@ -97,6 +99,8 @@ def analyze_batch(bits: torch.Tensor,
     METERELF_QUAD_STATS != fused the JAX graph runs
     propagate_quads(pack_closed=False), which is K6's function, and then
     the same _finalize."""
-    okey, conv = propagate(bits, caps)
-    return components.finalize(okey, (bits & 1) != 0, (bits & 4) != 0,
-                               conv, static_bbox, stats)
+    with span("meterelf.decode.ccl"):
+        okey, conv = propagate(bits, caps)
+    with span("meterelf.decode.stats"):
+        return components.finalize(okey, (bits & 1) != 0, (bits & 4) != 0,
+                                   conv, static_bbox, stats)

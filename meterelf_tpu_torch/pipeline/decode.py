@@ -53,6 +53,12 @@ port.
 ``make_coef_decode_fn`` puts the JPEG back-half of the coefficient feed
 (ops/jpeg_tail.py: K10, or the plain IDCT and K11 on the block layout)
 and the fallback slots in front of the same decode.
+
+Each stage of the step and of ``_decode_batch``, and the result's copy
+and wait (``to_host_later``), runs in one flat span of profiling.py
+(``meterelf.step.backhalf``, ``meterelf.decode.*``, ``meterelf.result.*``):
+a profiler range under an active torch.profiler, a shared no-op
+otherwise.
 """
 from __future__ import annotations
 
@@ -64,6 +70,7 @@ import torch
 
 from ..errors import ErrCode
 from ..params import Params, to_device
+from ..profiling import count, span
 from ..ops import match
 from ..ops.angles import assemble_value, read_dials, read_dials_region
 from ..ops.ccl import analyze_batch, ccl
@@ -214,8 +221,10 @@ class MeterDecoder:
         """Replace the non-converged rows of a host BatchResult for
         ``crops`` by a decode under RESCUE_CAPS; raise if rows are still
         non-converged then (no mislabeled reading is ever returned)."""
-        if bool(np.asarray(res.converged).all()):
+        conv = np.asarray(res.converged)
+        if bool(conv.all()):
             return res
+        count("rescued_rows", int(conv.size - np.count_nonzero(conv)))
         res2 = _to_numpy(self.decode(crops, load_ok, caps=RESCUE_CAPS))
         if not bool(res2.converged.all()):
             bad = np.nonzero(~res2.converged)[0].tolist()
@@ -245,54 +254,69 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
                     and static_win_origin is not None
                     and len(static_win_origin) == D)
     use_quad = use_frontend and D == 4 and static_centers is not None
+    fused = use_quad and dec.quad_stats == "fused"
 
+    # one flat span a stage (profiling.py)
     bits = None
-    if use_quad and dec.frontend == "merged":
-        max_val, mx, my, bits = frontend_windows(
-            packed, pa.template_u8, dec.score_c1, dec.score_c0, dec.geom,
-            dec.disk, dec.hue_shift)
-    elif use_frontend:
-        max_val, mx, my = frontend(packed, pa.template_u8, dec.score_c1,
-                                   dec.score_c0)
-    else:
-        lightness = lightness_from_planes(*unpack_planes(packed)).to(
-            torch.float32)
-        score = (match.match_scores
-                 if match.fits(*lightness.shape[1:], th, tw)
-                 else match.scores_matmul)
-        max_val, mx, my = locate(score(lightness, pa.template_u8,
-                                       dec.tmean))
+    with span("meterelf.decode.frontend"):
+        if use_quad and dec.frontend == "merged":
+            max_val, mx, my, bits = frontend_windows(
+                packed, pa.template_u8, dec.score_c1, dec.score_c0,
+                dec.geom, dec.disk, dec.hue_shift)
+            bits = bits.reshape(B * D, W, W)
+        elif use_frontend:
+            max_val, mx, my = frontend(packed, pa.template_u8, dec.score_c1,
+                                       dec.score_c0)
+        else:
+            lightness = lightness_from_planes(*unpack_planes(packed)).to(
+                torch.float32)
+            score = (match.match_scores
+                     if match.fits(*lightness.shape[1:], th, tw)
+                     else match.scores_matmul)
+            max_val, mx, my = locate(score(lightness, pa.template_u8,
+                                           dec.tmean))
     if bits is None:
-        bits = windows(packed, mx, my, dec.geom, dec.disk, dec.hue_shift)
-    if use_quad and dec.quad_stats == "fused":
-        okey3, conv = ccl(bits.reshape(B * D, W, W), caps)
-        keymax, has_any = stats(okey3)
-        positions, readable = read_dials(
-            okey3.reshape(B, D, W * W), keymax.reshape(B, D), pa)
+        with span("meterelf.decode.windows"):
+            bits = windows(packed, mx, my, dec.geom, dec.disk,
+                           dec.hue_shift).reshape(B * D, W, W)
+    if fused:
+        with span("meterelf.decode.ccl"):
+            okey3, conv = ccl(bits, caps)
+        with span("meterelf.decode.stats"):
+            keymax, has_any = stats(okey3)
     else:
-        comp = analyze_batch(bits.reshape(B * D, W, W), static_bbox, caps,
+        # analyze_batch opens the ccl and stats spans
+        comp = analyze_batch(bits, static_bbox, caps,
                              dec.quad_stats if use_quad else "sort")
         has_any, conv = comp.has_any, comp.converged
-        positions, readable = read_dials_region(
-            comp.needle_region.reshape(B, D, W * W), pa)
-    if D == 4:
-        value = assemble_value(positions, pa.value_perm)
-    else:
-        value = torch.zeros(B, dtype=positions.dtype, device=packed.device)
-    err, first_bad, unreadable_bits = _error_codes(
-        load_ok, max_val >= dec._threshold, has_any.reshape(B, D), readable)
-    return BatchResult(
-        err=err,
-        first_bad_dial=first_bad,
-        unreadable_bits=unreadable_bits,
-        match_val=max_val,
-        match_x=mx,
-        match_y=my,
-        dial_pos=positions,
-        readable=readable,
-        value=value,
-        converged=conv.reshape(B, D).all(dim=1),
-    )
+    with span("meterelf.decode.angles"):
+        if fused:
+            positions, readable = read_dials(
+                okey3.reshape(B, D, W * W), keymax.reshape(B, D), pa)
+        else:
+            positions, readable = read_dials_region(
+                comp.needle_region.reshape(B, D, W * W), pa)
+        if D == 4:
+            value = assemble_value(positions, pa.value_perm)
+        else:
+            value = torch.zeros(B, dtype=positions.dtype,
+                                device=packed.device)
+    with span("meterelf.decode.errors"):
+        err, first_bad, unreadable_bits = _error_codes(
+            load_ok, max_val >= dec._threshold, has_any.reshape(B, D),
+            readable)
+        return BatchResult(
+            err=err,
+            first_bad_dial=first_bad,
+            unreadable_bits=unreadable_bits,
+            match_val=max_val,
+            match_x=mx,
+            match_y=my,
+            dial_pos=positions,
+            readable=readable,
+            value=value,
+            converged=conv.reshape(B, D).all(dim=1),
+        )
 
 
 def _stats_bbox(mask_full: np.ndarray, sb: int = 48
@@ -345,27 +369,30 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
     def step(pa: Any, cy: Any, cb: Any, cr: Any, qt: Any, ok: Any,
              fb_packed: Any, fb_idx: Any) -> BatchResult:
         del pa
-        cy, cb, cr, qt = (upload(a, dev) for a in (cy, cb, cr, qt))
-        rows, cols = cy.shape[1:]
-        if cy.dtype == torch.int8:
-            rows = rows * 2 // 3      # compact wire: 3/2 stored rows a row
-        if (rows, cols) == plane_shape:
-            packed = backhalf_planes(cy, cb, cr, qt, win, pad_hw)
-        elif tuple(cy.shape[1:]) == block_shape:
-            packed = backhalf_blocks(cy, cb, cr, qt, win, pad_hw)
-        else:
-            raise ValueError(f"coefficients of shape {tuple(cy.shape)} fit "
-                             f"neither layout of window {win}")
-        # the slot choice runs on the host (the feed's fb_idx is numpy):
-        # no device sync, and unused slots never cross to the device
-        B = packed.shape[0]
-        idx = torch.as_tensor(fb_idx).cpu().to(torch.int64)
-        idx = torch.where(idx < 0, idx + B, idx)
-        keep = (idx >= 0) & (idx < B)
-        if bool(keep.any()):
-            fb = torch.as_tensor(fb_packed)
-            rows = fb[keep.to(fb.device)].to(torch.int32)
-            packed[upload(idx[keep], dev)] = upload(rows, dev)
+        with span("meterelf.step.backhalf"):
+            cy, cb, cr, qt = (upload(a, dev) for a in (cy, cb, cr, qt))
+            rows, cols = cy.shape[1:]
+            if cy.dtype == torch.int8:
+                rows = rows * 2 // 3  # compact wire: 3/2 stored rows a row
+            if (rows, cols) == plane_shape:
+                packed = backhalf_planes(cy, cb, cr, qt, win, pad_hw)
+            elif tuple(cy.shape[1:]) == block_shape:
+                packed = backhalf_blocks(cy, cb, cr, qt, win, pad_hw)
+            else:
+                raise ValueError(f"coefficients of shape {tuple(cy.shape)} "
+                                 f"fit neither layout of window {win}")
+            # the slot choice runs on the host (the feed's fb_idx is
+            # numpy): no device sync, and unused slots never cross to the
+            # device
+            B = packed.shape[0]
+            idx = torch.as_tensor(fb_idx).cpu().to(torch.int64)
+            idx = torch.where(idx < 0, idx + B, idx)
+            keep = (idx >= 0) & (idx < B)
+            if bool(keep.any()):
+                count("fallback_rows", int(keep.sum()))
+                fb = torch.as_tensor(fb_packed)
+                rows = fb[keep.to(fb.device)].to(torch.int32)
+                packed[upload(idx[keep], dev)] = upload(rows, dev)
         return dec.decode(packed, ok)
 
     return step, win, pad_hw
@@ -386,20 +413,22 @@ def to_host_later(res: Any) -> Callable[[], Any]:
     arrays) to the host behind the work queued so far, without waiting;
     returns a function that waits for those copies alone and gives every
     field as numpy."""
-    host = [v.to("cpu", non_blocking=True) if torch.is_tensor(v) else v
-            for v in res]
-    done = None
-    for v in res:
-        if torch.is_tensor(v) and v.is_cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(v.device))
-            break
+    with span("meterelf.result.copy"):
+        host = [v.to("cpu", non_blocking=True) if torch.is_tensor(v) else v
+                for v in res]
+        done = None
+        for v in res:
+            if torch.is_tensor(v) and v.is_cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(v.device))
+                break
 
     def fetch() -> Any:
-        if done is not None:
-            done.synchronize()
-        return type(res)(*[v.numpy() if torch.is_tensor(v)
-                           else np.asarray(v) for v in host])
+        with span("meterelf.result.wait"):
+            if done is not None:
+                done.synchronize()
+            return type(res)(*[v.numpy() if torch.is_tensor(v)
+                               else np.asarray(v) for v in host])
 
     return fetch
 

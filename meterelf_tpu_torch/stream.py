@@ -43,7 +43,7 @@ from .api import device_from_env
 from .errors import ErrCode
 from .params import Params
 from .pipeline.decode import MeterDecoder, to_host_later
-from .profiling import StageTimers
+from .profiling import StageTimers, span
 
 
 @dataclass
@@ -426,12 +426,14 @@ def stream_decode_bytes(
             yield emit()
 
     def dispatch(datas):
-        if pool is not None:
-            feed = pool.load(datas)
-        else:
-            feed = jio.load_coef_feed(datas, params.meter_rect, frame_wh,
-                                      pad_hw, num_threads=num_threads,
-                                      compact=compact)
+        with span("meterelf.stream.feed"):
+            if pool is not None:
+                feed = pool.load(datas)
+            else:
+                feed = jio.load_coef_feed(datas, params.meter_rect,
+                                          frame_wh, pad_hw,
+                                          num_threads=num_threads,
+                                          compact=compact)
         res = step(dec.param_arrays, *feed)
         return _fetch_later(res, mesh_step.aggregate(res)
                             if mesh_step is not None else None)
@@ -752,8 +754,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     recorded span); otherwise they fall back to wall-clock.
 
     METERELF_PROFILE=1 prints per-stage wall-clock timers (dispatch /
-    drain / rescue) to stderr when the stream ends; `--trace DIR`
-    writes a torch.profiler trace of the whole stream into DIR;
+    drain / rescue) and the process's counters (fallback_rows,
+    rescued_rows) to stderr when the stream ends; `--trace DIR` writes
+    a torch.profiler trace of the whole stream into DIR, with the
+    port's spans (profiling.py: meterelf.stream.*, meterelf.step.*,
+    meterelf.decode.*, meterelf.result.*) on the kernels' timeline;
     `--debug-http PORT` serves the newest frame's overlay at
     http://localhost:PORT/ (debugviz.serve_overlays).
     """
