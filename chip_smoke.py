@@ -6,7 +6,7 @@ Runs from the root of a checkout, with nothing built beforehand:
 
 1. prints the card (torch and CUDA versions, nvidia-smi name and power
    limit); exits non-zero when no CUDA device is present;
-2. builds the eleven CUDA kernels from meterelf_tpu_torch/csrc with nvcc
+2. builds the twelve CUDA kernels from meterelf_tpu_torch/csrc with nvcc
    and the host JPEG readers (io/native/*.c) with gcc; renders 256
    flagship, 64 ALT_CAMERA and 256 FIVE_DIAL_CAMERA frames and encodes
    flagship (64 distinct, tiled), ALT and five-dial (32 distinct, tiled)
@@ -17,9 +17,11 @@ Runs from the root of a checkout, with nothing built beforehand:
    their 1024 dial windows; the flagship JPEG feed's compact planes for
    K10 and its block-branch planes for K11; the five-dial camera's 1280
    windows for K6; the flagship lightness maps for K8 and K9; K5 on the
-   flagship crops, K7 on K6's okey of the flagship windows) and holds it
-   against its plain torch version on the same CUDA tensors: exact
-   equality of every output (f32 outputs bitwise), and K5 against K1 then
+   flagship crops, K7 on K6's okey of the flagship windows, K12 on K3's
+   okey3 and K4's keymax of the flagship windows and on the needle
+   regions of the flagship and five-dial windows) and holds it against
+   its plain torch version on the same CUDA tensors: exact equality of
+   every output (f32 and f64 outputs bitwise), and K5 against K1 then
    K2, K7's keymax against K4's, K9's v1 map against K8's; times both
    with CUDA events, and times the library yardstick where one PyTorch
    call computes the same function (K1's, K8's and K9's correlation as an
@@ -38,8 +40,9 @@ Runs from the root of a checkout, with nothing built beforehand:
    (``K11_WINDOWS``: past the valid chroma rows, past the valid chroma
    columns, 4,960 columns wide), times its C entry (``kernel_ms``,
    ``cold_ms``) and the whole block branch beside its plain IDCT; for
-   K1, K2, K4, K5 and K7 times the C entry alone too (``kernel_ms``; K2
-   also one launch at a time after a read that empties L2, ``cold_ms``)
+   K1, K2, K4, K5, K7 and K12 times the C entry alone too (``kernel_ms``;
+   K2 and K12 also one launch at a time after a read that empties L2,
+   ``cold_ms``)
    and prints K2's registers and shared memory and K5 - K1;
 4. drives each path with every launch count reset to 0 first: the crop
    decode (MeterDecoder(device="cuda").decode_numpy) and the coefficient
@@ -54,7 +57,8 @@ Runs from the root of a checkout, with nothing built beforehand:
    v1 scorer (match.match_scores_v1: K9): readings within 0.1 of the
    rendered positions, the first 16 rows equal to the CPU (plain
    versions), the variants equal to the default decode, the kernels of
-   each path launched as the path requires; then a dense-noise window
+   each path launched as the path requires (K12 once a decode on every
+   path); then a dense-noise window
    through the CCL kernel and through the hist_pallas variant's analysis
    (K6, K7), non-converged under the default caps and converged under the
    rescue caps, equal to the plain version both times;
@@ -67,7 +71,7 @@ Runs from the root of a checkout, with nothing built beforehand:
    ``write_params`` directories of the flagship and ALT: 256 distinct
    flagship and 64 ALT JPEG files and one of each error kind
    (CLI_ERRORS), at the CLI's default batch; the same files in process
-   through ``get_meter_values`` (K1-K4 launched and no other kernel,
+   through ``get_meter_values`` (K1-K4 and K12 launched and no other kernel,
    readings within 0.1, images/s over the batches after the first,
    exact and fast); the CPU on a subset of every kind, exact,
    METERELF_EXACT=0 and DEBUG=1 (overlays written), byte-equal to the
@@ -196,6 +200,9 @@ REPLACES = {
     "frontend_windows": "meterelf_tpu/ops/pallas_frontend.py:478",
     "stats_select": "meterelf_tpu/ops/pallas_stats.py:304",
     "match_corr": "meterelf_tpu/ops/pallas_match.py:109",
+    # no Pallas kernel: XLA ops of read_dial_from_okey and assemble_value
+    "readout": "meterelf_tpu/ops/angles.py:read_dial_from_okey "
+               "+ assemble_value (plain graph)",
 }
 SOURCES = {k: f"meterelf_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["backhalf_planes"] = SOURCES["upsample_color_pack"] = (
@@ -205,6 +212,7 @@ SOURCES["match_scores"] = SOURCES["match_corr"] = (
     "meterelf_tpu_torch/csrc/match.cu")
 SOURCES["frontend_windows"] = "meterelf_tpu_torch/csrc/frontend.cu"
 SOURCES["stats_select"] = "meterelf_tpu_torch/csrc/stats.cu"
+SOURCES["readout"] = "meterelf_tpu_torch/csrc/angles.cu"
 
 
 def say(*a: object) -> None:
@@ -699,8 +707,8 @@ def main() -> int:
 
     from meterelf_tpu_torch import _build, synthetic
     from meterelf_tpu_torch.io import jpeg as tio
-    from meterelf_tpu_torch.ops import components, frontend, jpeg_tail
-    from meterelf_tpu_torch.ops import jpegdec, match, stats
+    from meterelf_tpu_torch.ops import angles, components, frontend
+    from meterelf_tpu_torch.ops import jpeg_tail, jpegdec, match, stats
     from meterelf_tpu_torch.ops import ccl as ccl_ops
     from meterelf_tpu_torch.ops import windows as win_ops
     from meterelf_tpu_torch.ops.color import (lightness_from_planes,
@@ -994,6 +1002,73 @@ def main() -> int:
         results["stats"].update(bound(px * 4 + 5 * okey3.shape[0], 8 * px,
                                       INT32_OPS_PER_S))
 
+    def k12() -> None:
+        """K12 on the flagship windows' okey3 and keymax (K3, K4), and on
+        the needle regions (K6 and the sort selection) of the flagship
+        and five-dial windows: the wrapper and the C entry bit-equal to
+        the plain angle stage; on the okey3 gather the wrapper and the C
+        entry timed, warm and after a read that empties L2."""
+        D = len(dec.geom)
+        src = state["okey3"].reshape(B_MAIN, D, -1)
+        km = state["keymax"].reshape(B_MAIN, D)
+
+        def same(a, b) -> bool:   # floats bit for bit
+            def bits(t):
+                return t.view(torch.int64) if t.is_floating_point() else t
+            return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+        def held(label, src, km, p) -> float:
+            got = angles.readout(src, km, p)
+            c_args, c_out = angles.c_args(src, km, p)
+            check(lib.meterelf_readout(*c_args) == 0,
+                  f"{label}: C entry launch failed")
+            ref = angles.readout_plain(src, km, p)
+            torch.cuda.synchronize()
+            check(same(got, ref), f"{label}: positions, readable or values "
+                  "differ from the plain version")
+            check(same(c_out, ref), f"{label}: C entry differs from the "
+                  "plain version")
+            return max(float((got[0] - ref[0]).abs().max()),
+                       float((got[2] - ref[2]).abs().max()))
+
+        errs = [held("okey3 gather, flagship", src, km, pa)]
+        for label, d, wbits in (("flagship", dec, state["bits"]),
+                               ("five-dial", five_dec, state["five_bits"])):
+            region = ccl_ops.analyze_batch(
+                wbits, d.static_kwargs["static_bbox"]).needle_region
+            shape = (B_MAIN, len(d.geom), -1)
+            errs.append(held(f"region gather, {label} {shape[:2]}",
+                             region.reshape(shape), None, d.param_arrays))
+        results["readout"]["max_abs_err"] = max(errs)
+        results["readout"]["ms"] = cuda_ms(
+            lambda: angles.readout(src, km, pa), 20)
+        c_args, _ = angles.c_args(src, km, pa)
+        results["readout"]["kernel_ms"] = cuda_ms(
+            lambda: lib.meterelf_readout(*c_args), 20)
+        results["readout"]["cold_ms"] = cold_ms(
+            lambda: lib.meterelf_readout(*c_args), 20, state["flush"])
+        results["readout"]["plain_ms"] = cuda_ms(
+            lambda: angles.readout_plain(src, km, pa), 5)
+        # the okey3 pixels the slots gather (the annulus lies in the disk:
+        # each pixel once) and keymax read, the geometry read once, the
+        # positions, readable flags and values written; its f64 adds take
+        # far less
+        host = dec.params.arrays()
+        px = sum(len(np.union1d(host.disk_idx[d][host.disk_valid[d]],
+                                host.ann_idx[d][host.ann_valid[d]]))
+                 for d in range(D))
+        geom = sum(getattr(host, k).nbytes for k in host._fields
+                   if k.startswith(("disk_", "ann_"))
+                   or k in ("neg_sign", "zero_turn"))
+        results["readout"].update(bound(
+            B_MAIN * (px * 4 + D * 4) + geom + B_MAIN * (D * 9 + 8), 0,
+            INT32_OPS_PER_S))
+        say(f"K12: wrapper {results['readout']['ms']} ms, C entry "
+            f"{results['readout']['kernel_ms']} ms (L2 emptied first "
+            f"{results['readout']['cold_ms']} ms); {px} okey3 pixels an "
+            f"image, geometry {geom} B; equal to plain on the okey3 gather "
+            f"and on the flagship and five-dial regions")
+
     def k10() -> None:
         fy, fcb, fcr, qt = state["feed_dev"][:4]
         args = (fy, fcb, fcr, qt, win, pad_hw)
@@ -1093,6 +1168,7 @@ def main() -> int:
     def k6() -> None:
         # the general branch's windows: FIVE_DIAL_CAMERA at B_MAIN, K1 + K2
         bits = window_bits(five_dec, five_packed)
+        state["five_bits"] = bits
         results["propagate"].update(ccl_case(
             "K6 five-dial", "propagate", ccl_ops.propagate, bits))
         results["propagate"]["plain_ms"] = cuda_ms(
@@ -1236,7 +1312,8 @@ def main() -> int:
                      ("stats", k4), ("backhalf_planes", k10),
                      ("upsample_color_pack", k11), ("propagate", k6),
                      ("match_scores", k8), ("frontend_windows", k5),
-                     ("stats_select", k7), ("match_corr", k9))
+                     ("stats_select", k7), ("match_corr", k9),
+                     ("readout", k12))
     for name, fn in kernel_phases:
         phase(f"kernel {name}", fn)
         r = results[name]
@@ -1249,7 +1326,7 @@ def main() -> int:
 
     # ---- phase 4: the crop decode path and the coefficient path ----
     crop_kernels = (frontend.frontend, win_ops.windows, ccl_ops.ccl,
-                    stats.stats)
+                    stats.stats, angles.readout)
     coef_kernels = crop_kernels + (jpeg_tail.backhalf_planes,
                                    jpeg_tail.upsample_color_pack)
     general_kernels = (ccl_ops.propagate, match.match_scores)
@@ -1264,6 +1341,13 @@ def main() -> int:
     def counts(fns) -> dict:
         return {fn.__name__: fn.launches for fn in fns}
 
+    def check_readout(launches: dict, label: str) -> None:
+        """K12 reads each decode once: a decode launches K3 (fused) or
+        K6 (every other branch) once, a rescue decodes again."""
+        n = launches["ccl"] + launches["propagate"]
+        check(n > 0 and launches["readout"] == n,
+              f"{label}: K12 must launch once a decode: {launches}")
+
     def crop_run() -> None:
         dec.decode_numpy(crops[:8])   # warm-up (library, allocator)
         torch.cuda.synchronize()
@@ -1276,6 +1360,7 @@ def main() -> int:
         launches = counts(crop_kernels)
         say(f"crop decode path: {B_MAIN} flagship + {B_ALT} ALT crops in "
             f"{wall:.3f} s; launches {launches}")
+        check_readout(counts(all_kernels), "crop decode path")
         check_readings("crop flagship", res, true_pos)
         check_readings("crop alt", res_alt, alt_pos)
         cpu_dec = MeterDecoder(cam.make_params(), device="cpu")
@@ -1307,6 +1392,9 @@ def main() -> int:
         launches = counts(coef_kernels)
         for name, n in launches.items():
             results[name]["launches"] = n
+        check(launches["readout"] == 3,
+              f"K12 must read each of the 3 steps once: {launches}")
+        check_readout(counts(all_kernels), "coefficient path")
         say(f"coefficient path: {B_MAIN} flagship + {B_ALT} ALT JPEG feeds "
             f"(compact planes) and {B_MAIN} flagship (block layout) in "
             f"{wall:.3f} s; launches {launches}")
@@ -1355,6 +1443,7 @@ def main() -> int:
               and launches["ccl"] == 0 and launches["stats"] == 0
               and launches["match_scores"] == 0,
               f"general branch launches {launches}")
+        check_readout(launches, "general branch, crops")
         cpu = MeterDecoder(five.make_params(), device="cpu")
         compare_results(rows(res, N_CPU_CHECK),
                         cpu.decode_numpy(five_crops[:N_CPU_CHECK]),
@@ -1370,6 +1459,7 @@ def main() -> int:
         check(launches["propagate"] == 1 and launches["backhalf_planes"] == 1
               and launches["ccl"] == 0 and launches["stats"] == 0,
               f"general coefficient step launches {launches}")
+        check_readout(launches, "general branch, coefficient step")
         check_readings("general five-dial coef", res_c,
                        five_pos[np.arange(B_MAIN) % N_FIVE])
         cpu_step, _, _ = make_coef_decode_fn(cpu, FRAME_WH)
@@ -1396,6 +1486,7 @@ def main() -> int:
         check(launches["match_scores"] == 1 and launches["frontend"] == 0
               and launches["propagate"] >= 1 and launches["ccl"] == 0,
               f"scorer-only launches {launches}")
+        check_readout(launches, "scorer-only branch")
         cpu = MeterDecoder(cam.make_params(), device="cpu")
         cpu.static_kwargs["static_win_origin"] = None
         compare_results(rows(res, N_CPU_CHECK),
@@ -1440,6 +1531,7 @@ def main() -> int:
         launches = counts(all_kernels)
         say(f"fallback batch through the coefficient step: launches "
             f"{launches}")
+        check_readout(launches, "fallback batch")
         check_readings("fallback batch", res,
                        true_pos[np.arange(B_MAIN) % N_DISTINCT])
         cpu_step, _, _ = make_coef_decode_fn(
@@ -1464,9 +1556,11 @@ def main() -> int:
         cpu = {}
         for (fe, qs), d, want in (
                 (("merged", "hist_pallas"), mh,
-                 {"frontend_windows": 1, "propagate": 1, "stats_select": 1}),
+                 {"frontend_windows": 1, "propagate": 1, "stats_select": 1,
+                  "readout": 1}),
                 (("merged", "fused"), mf,
-                 {"frontend_windows": 1, "ccl": 1, "stats": 1})):
+                 {"frontend_windows": 1, "ccl": 1, "stats": 1,
+                  "readout": 1})):
             reset(all_kernels)
             t = time.perf_counter()
             res = d.decode_numpy(crops)
@@ -1497,7 +1591,8 @@ def main() -> int:
         say(f"variant merged + hist_pallas, coefficient step: {B_MAIN} "
             f"flagship JPEG feeds; launches {launches}")
         check(launches == {k: int(k in ("frontend_windows", "propagate",
-                                        "stats_select", "backhalf_planes"))
+                                        "stats_select", "backhalf_planes",
+                                        "readout"))
                            for k in launches},
               f"variant coefficient step launches {launches}")
         check_readings("variant merged + hist_pallas coef", res,
@@ -1676,7 +1771,9 @@ def main() -> int:
                 check(all(launches[fn.__name__] > 0 for fn in crop_kernels)
                       and sum(launches.values()) == sum(
                           launches[fn.__name__] for fn in crop_kernels),
-                      f"cli {label}: K1-K4 (and only they) must launch")
+                      f"cli {label}: K1-K4 and K12 (and only they) must "
+                      "launch")
+                check_readout(launches, f"cli {label}")
                 return recs, steady
 
             recs, steady = {}, {}
@@ -1847,7 +1944,8 @@ def main() -> int:
                 for k, n in launches.items():
                     results[k]["stream_launches"] = n
                 want = {k: int(k in ("frontend", "windows", "ccl", "stats",
-                                     "backhalf_planes")) * N_SHORT // B_SHORT
+                                     "backhalf_planes", "readout"))
+                        * N_SHORT // B_SHORT
                         for k in launches}
                 say(f"stream (card): stream_decode_bytes launches {launches}")
             t = time.perf_counter()
@@ -2267,7 +2365,8 @@ def main() -> int:
         agg = md.aggregate(res)
         got = to_host_later(res)()
         launches = counts(all_kernels)
-        want = {k: n_dev * int(k in ("frontend", "windows", "ccl", "stats"))
+        want = {k: n_dev * int(k in ("frontend", "windows", "ccl", "stats",
+                                     "readout"))
                 for k in launches}
         check(launches == want, f"mesh decode launches {launches}")
         bits_equal(got, plain, "crop decode")
@@ -2298,7 +2397,8 @@ def main() -> int:
         got_c = to_host_later(res)()
         launches = counts(all_kernels)
         want = {k: n_dev * int(k in ("frontend", "windows", "ccl", "stats",
-                                     "backhalf_planes")) for k in launches}
+                                     "backhalf_planes", "readout"))
+                for k in launches}
         check(launches == want, f"mesh step launches {launches}")
         bits_equal(got_c, plain_c, "coefficient step")
         nofb = to_host_later(step(None, *feed))()

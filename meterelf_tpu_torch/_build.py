@@ -58,6 +58,9 @@ _SIGNATURES = {
     "meterelf_stats_select": [_P, _P, _I, _P, _P],
     "meterelf_backhalf_planes": [_P, _P, _P, _I, _P, _I, _P, _P, _P],
     "meterelf_upsample_color_pack": [_P, _P, _P, _I, _P, _P, _P],
+    "meterelf_readout": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                         _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P],
 }
 
 

@@ -112,6 +112,29 @@ int meterelf_upsample_color_pack(const uint8_t* y, const uint8_t* cb,
                                  const int32_t* geom, int32_t* out,
                                  void* stream);
 
+// K12: the dial angle statistics and the value, per window of B images
+// x D dials (1 <= D <= 8). src: okey3 [B, D, 4096] i32 with keymax [B,
+// D] i32 (region = 0; the needle is the selected owner of a big blob,
+// else the closed bit), or the needle region [B, D, 4096] bool (region =
+// 1; keymax unused). The geometry (ParamArrays' fields): disk_idx,
+// disk_valid [D, n_disk] i32 / u8, disk_sx2 and disk_sy2 [D, n_disk];
+// ann_idx, ann_valid [D, n_ann] i32 / u8, ann_x, ann_y, ann_angle and
+// ann_sqd [D, n_ann]; neg_sign [D] i32; zero_turn [D]; the floating
+// fields f32 (geom_f32 = 1) or f64. n_disk and n_ann in 1..4096. p0..p3:
+// value_perm (read when D == 4). Out: position [B, D] f64, readable [B,
+// D] u8, value [B] f64 (0 unless D == 4).
+int meterelf_readout(const void* src, int region, const int32_t* keymax,
+                     int B, int D, const int32_t* disk_idx,
+                     const uint8_t* disk_valid, const void* disk_sx2,
+                     const void* disk_sy2, int n_disk,
+                     const int32_t* ann_idx, const uint8_t* ann_valid,
+                     const void* ann_x, const void* ann_y,
+                     const void* ann_angle, const void* ann_sqd, int n_ann,
+                     const int32_t* neg_sign, const void* zero_turn,
+                     int geom_f32, int p0, int p1, int p2, int p3,
+                     double* position, uint8_t* readable, double* value,
+                     void* stream);
+
 #ifdef __cplusplus
 }
 #endif

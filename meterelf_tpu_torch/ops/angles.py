@@ -1,5 +1,5 @@
-"""Needle angles and the 4-dial value, in plain torch (f64 sums on the
-device).
+"""Needle angles and the 4-dial value: the plain torch graph (f64 sums on
+the device) and K12 ``readout``, its CUDA kernel.
 
 Port of meterelf_tpu/ops/angles.py read_dial_from_okey, read_dial,
 _read_dial_core and assemble_value, batched over [B, D] windows instead
@@ -19,17 +19,28 @@ The float64 sums run in the order in which the JAX package's graph sums
 them on the CPU (``tree_sum``: XLA's tree-reduction rewrite, runs of 32
 in index order), so a dial position has the JAX package's bits, on the
 card as on the CPU: the DEBUG output prints them in full.
+
+``readout`` is the decode's angle stage: on the CPU the plain graph
+(``readout_plain``); on the card K12 (csrc/angles.cu), the whole stage in
+one launch, bit-equal to the plain graph run on the card: the needle
+gathered from okey3 and keymax (quad fused branch) or from the needle
+region (the other branches), the momentum, the tip filter and trim, the
+weighted mean in ``tree_sum``'s order, and the value for 4 dials.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..params import DeviceParams
+from .launch import check_cuda, raise_on_error, stream_of
 
 RUN = 32   # XLA CPU's tree-reduction window
+N = 64 * 64        # pixels of a dial window; K12 takes 1..N slots a dial
+MAX_DIALS = 8      # csrc/angles.cu kMaxDials
 
 
 def _run_sum(x: torch.Tensor) -> torch.Tensor:
@@ -152,4 +163,115 @@ def assemble_value(positions: torch.Tensor, value_perm: Tuple[int, ...]
     d2 = digit(r2, d3 <= 2, d3 >= 8)
     d1 = digit(r1, d2 <= 2, d2 >= 8)
     f = positions.dtype
-    return d1.to(f) * 100.0 + d2.to(f) * 10.0 + d3.to(f) + r4 / 10.0
+    # a tensor divisor: a Python scalar's quotient is computed on the card
+    # as the product with its reciprocal, which can differ in the last bit
+    # from the division (the JAX package's, and K12's)
+    return (d1.to(f) * 100.0 + d2.to(f) * 10.0 + d3.to(f)
+            + r4 / torch.full_like(r4, 10.0))
+
+
+def readout_plain(src: torch.Tensor, keymax: Optional[torch.Tensor],
+                  pa: DeviceParams
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain angle stage: ``read_dials`` on okey3 [B, D, 4096] i32
+    and keymax [B, D] i32, or ``read_dials_region`` on the needle region
+    [B, D, 4096] bool (keymax None), then the value (``assemble_value``
+    for 4 dials, else zeros) -> (position f64 [B, D], readable bool [B,
+    D], value f64 [B])."""
+    if keymax is None:
+        positions, readable = read_dials_region(src, pa)
+    else:
+        positions, readable = read_dials(src, keymax, pa)
+    if positions.shape[1] == 4:
+        value = assemble_value(positions, pa.value_perm)
+    else:
+        value = torch.zeros(positions.shape[0], dtype=positions.dtype,
+                            device=positions.device)
+    return positions, readable, value
+
+
+def c_args(src: torch.Tensor, keymax: Optional[torch.Tensor],
+           pa: DeviceParams
+           ) -> Tuple[tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The arguments of K12's C entry meterelf_readout
+    (csrc/meterelf_kernels.h) and the outputs they write: (position f64
+    [B, D], readable bool [B, D], value f64 [B])."""
+    B, D = src.shape[:2]
+    dev = src.device
+    position = torch.empty((B, D), dtype=torch.float64, device=dev)
+    readable = torch.empty((B, D), dtype=torch.bool, device=dev)
+    value = torch.empty(B, dtype=torch.float64, device=dev)
+    perm = pa.value_perm if D == 4 else (0, 0, 0, 0)
+    return (src.data_ptr(), int(keymax is None),
+            None if keymax is None else keymax.data_ptr(), B, D,
+            pa.disk_idx.data_ptr(), pa.disk_valid.data_ptr(),
+            pa.disk_sx2.data_ptr(), pa.disk_sy2.data_ptr(),
+            pa.disk_idx.shape[1], pa.ann_idx.data_ptr(),
+            pa.ann_valid.data_ptr(), pa.ann_x.data_ptr(),
+            pa.ann_y.data_ptr(), pa.ann_angle.data_ptr(),
+            pa.ann_sqd.data_ptr(), pa.ann_idx.shape[1],
+            pa.neg_sign.data_ptr(), pa.zero_turn.data_ptr(),
+            int(pa.disk_sx2.dtype == torch.float32), *perm,
+            position.data_ptr(), readable.data_ptr(), value.data_ptr(),
+            stream_of(dev)), (position, readable, value)
+
+
+def _check_geometry(src: torch.Tensor, pa: DeviceParams) -> None:
+    """Raise unless pa's angle geometry is on src's card, contiguous, of
+    the kernel's dtypes (one floating dtype, f32 or f64) and shapes."""
+    D = src.shape[1]
+    f = pa.disk_sx2.dtype
+    if f not in (torch.float32, torch.float64):
+        raise TypeError(f"readout kernel: geometry dtype {f}, expected "
+                        "float32 or float64")
+    nd, na = pa.disk_idx.shape[-1], pa.ann_idx.shape[-1]
+    disk, ann = (D, nd), (D, na)
+    for name, dtype, shape in (
+            ("disk_idx", torch.int32, disk), ("disk_valid", torch.bool, disk),
+            ("disk_sx2", f, disk), ("disk_sy2", f, disk),
+            ("ann_idx", torch.int32, ann), ("ann_valid", torch.bool, ann),
+            ("ann_x", f, ann), ("ann_y", f, ann), ("ann_angle", f, ann),
+            ("ann_sqd", f, ann), ("neg_sign", torch.int32, (D,)),
+            ("zero_turn", f, (D,))):
+        t = getattr(pa, name)
+        check_cuda("readout", t, dtype, len(shape), like=src)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"readout kernel: {name} of shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    if not (1 <= nd <= N and 1 <= na <= N):
+        raise ValueError(f"readout kernel takes 1..{N} slots a "
+                         f"dial, got {nd} disk and {na} annulus slots")
+
+
+def readout(src: torch.Tensor, keymax: Optional[torch.Tensor],
+            pa: DeviceParams
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K12 wrapper: the angle stage on okey3 [B, D, 4096] i32 and keymax
+    [B, D] i32, or on the needle region [B, D, 4096] bool (keymax None)
+    -> (position f64 [B, D], readable bool [B, D], value f64 [B]), as
+    ``readout_plain``."""
+    if src.device.type == "cpu":
+        return readout_plain(src, keymax, pa)
+    check_cuda("readout", src, torch.int32 if keymax is not None
+               else torch.bool, 3)
+    B, D = src.shape[:2]
+    if src.shape[2] != N or not 1 <= D <= MAX_DIALS:
+        raise ValueError(f"readout kernel takes [B, 1..{MAX_DIALS}, {N}] "
+                         f"windows, got {tuple(src.shape)}")
+    if keymax is not None:
+        check_cuda("readout", keymax, torch.int32, 2, like=src)
+        if tuple(keymax.shape) != (B, D):
+            raise ValueError(f"readout kernel: keymax of shape "
+                             f"{tuple(keymax.shape)}, expected {(B, D)}")
+    _check_geometry(src, pa)
+    args, out = c_args(src, keymax, pa)
+    if B == 0:
+        return out
+    with torch.cuda.device(src.device):
+        rc = _build.library().meterelf_readout(*args)
+    raise_on_error("readout", rc)
+    readout.launches += 1
+    return out
+
+
+readout.launches = 0  # type: ignore[attr-defined]

@@ -21,10 +21,11 @@ the same static arguments (``MeterDecoder.static_kwargs``):
   package's matmul scorer in torch -> first-max locate -> K2 -> K6 ->
   finalize -> angles.
 
-Every branch ends in f64 angle statistics, the carry-corrected value
-(4 dials) and the reference's error priority (decode.py:440-467). On a
-CUDA device every kernel stage launches its CUDA kernel; on the CPU the
-same code runs each kernel's plain torch version.
+Every branch ends in f64 angle statistics and the carry-corrected value
+(4 dials; K12 readout, ops/angles.py) and the reference's error priority
+(decode.py:440-467). On a CUDA device every kernel stage launches its
+CUDA kernel; on the CPU the same code runs each kernel's plain torch
+version.
 
 The quad branch takes the JAX decode's two variant knobs, read when the
 decoder is built (``MeterDecoder(frontend=, quad_stats=)``, else the
@@ -72,7 +73,7 @@ from ..errors import ErrCode
 from ..params import Params, to_device
 from ..profiling import count, span
 from ..ops import match
-from ..ops.angles import assemble_value, read_dials, read_dials_region
+from ..ops.angles import readout
 from ..ops.ccl import analyze_batch, ccl
 from ..ops.color import lightness_from_planes, unpack_planes
 from ..ops.components import RESCUE_CAPS, StatsBox
@@ -290,17 +291,9 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
                              dec.quad_stats if use_quad else "sort")
         has_any, conv = comp.has_any, comp.converged
     with span("meterelf.decode.angles"):
-        if fused:
-            positions, readable = read_dials(
-                okey3.reshape(B, D, W * W), keymax.reshape(B, D), pa)
-        else:
-            positions, readable = read_dials_region(
-                comp.needle_region.reshape(B, D, W * W), pa)
-        if D == 4:
-            value = assemble_value(positions, pa.value_perm)
-        else:
-            value = torch.zeros(B, dtype=positions.dtype,
-                                device=packed.device)
+        src, km = ((okey3, keymax.view(B, D)) if fused
+                   else (comp.needle_region, None))
+        positions, readable, value = readout(src.view(B, D, W * W), km, pa)
     with span("meterelf.decode.errors"):
         err, first_bad, unreadable_bits = _error_codes(
             load_ok, max_val >= dec._threshold, has_any.reshape(B, D),

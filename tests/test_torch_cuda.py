@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from meterelf_tpu_torch import _build, synthetic
+from meterelf_tpu_torch import _build, params, synthetic
 from meterelf_tpu_torch.io import jpeg as tio
-from meterelf_tpu_torch.ops import ccl, components, frontend, jpeg_tail
-from meterelf_tpu_torch.ops import jpegdec, match, stats, windows
+from meterelf_tpu_torch.ops import angles, ccl, components, frontend
+from meterelf_tpu_torch.ops import jpeg_tail, jpegdec, match, stats, windows
 from meterelf_tpu_torch.ops.color import lightness_from_planes, unpack_planes
 from meterelf_tpu_torch.pipeline.decode import MeterDecoder, make_coef_decode_fn
 from meterelf_tpu_torch.types import Rect
@@ -493,6 +493,31 @@ def test_wrappers_refuse_bad_inputs(case, dev):
         frontend.frontend(
             torch.zeros((1, 1024, 1024), dtype=torch.int32, device=dev),
             torch.zeros((119, 188), dtype=torch.uint8, device=dev), 0.0, 0.0)
+    # K12: inputs of another dtype or shape, more dials than its warps,
+    # geometry off the card; none launches, and a good call still does
+    pa = dec.param_arrays
+    okey3 = torch.zeros((2, 4, W * W), dtype=torch.int32, device=dev)
+    keymax = torch.full((2, 4), -1, dtype=torch.int32, device=dev)
+    n = angles.readout.launches
+    with pytest.raises(TypeError):
+        angles.readout(okey3.to(torch.int64), keymax, pa)
+    with pytest.raises(TypeError):
+        angles.readout(okey3.to(torch.bool), keymax, pa)
+    with pytest.raises(ValueError):
+        angles.readout(okey3, keymax[:1], pa)
+    with pytest.raises(ValueError):
+        angles.readout(okey3[..., :W], keymax, pa)
+    with pytest.raises(ValueError):
+        angles.readout(torch.zeros((2, 9, W * W), dtype=torch.bool,
+                                   device=dev), None, pa)
+    with pytest.raises(ValueError):
+        angles.readout(okey3, keymax,
+                       params.to_device(dec.params.arrays(), "cpu"))
+    assert angles.readout.launches == n
+    got = angles.readout(okey3, keymax, pa)
+    assert angles.readout.launches == n + 1
+    want = angles.readout_plain(okey3, keymax, pa)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_wrappers_refuse_misaligned_inputs(case, dev):

@@ -26,7 +26,15 @@ ports of tests/test_tpu_fuzz.py's:
   K11) by load_coef_feed_shard(plane=False). That is the branch of the
   windows K10 refuses, taken here by a camera's window: K10 refuses no
   window of a camera-sized crop inside the valid chroma, its one refusal
-  there being shared memory, from windows 4,848 luma px wide.
+  there being shared memory, from windows 4,848 luma px wide;
+- K12 readout against the plain angle stage (ops/angles.readout_plain)
+  on the card, bit for bit, on both gathers (okey3 with keymax, the
+  needle region) and both geometry dtypes (``exact=False``): the fuzz
+  frames' windows of every camera (K1, K2, then K3 and K4 or K6 and the
+  sort finalize), the hand-made windows of tests/readout_windows.py,
+  rendered crops on the value's carry edges, and slot counts that pad
+  tree_sum at the first level, at the second or not at all, equal and
+  unequal between the disk and the annulus.
 """
 import os
 
@@ -34,13 +42,14 @@ import numpy as np
 import pytest
 import torch
 
+import readout_windows
 from fuzz_frames import fuzz_frames
 from meterelf_tpu_torch import synthetic
 from meterelf_tpu_torch.errors import ErrCode
 from meterelf_tpu_torch.io import jpeg as tio
-from meterelf_tpu_torch.ops import (ccl, frontend, jpeg_tail, jpegdec, match,
-                                    stats, windows)
-from meterelf_tpu_torch.pipeline.decode import (MeterDecoder,
+from meterelf_tpu_torch.ops import (angles, ccl, frontend, jpeg_tail, jpegdec,
+                                    match, stats, windows)
+from meterelf_tpu_torch.pipeline.decode import (FAST_F32, MeterDecoder,
                                                 make_coef_decode_fn,
                                                 to_host_later)
 
@@ -57,7 +66,7 @@ ANGLE_TOL = 1e-9   # f64 angle sums run in another order on the card
 KERNELS = (frontend.frontend, windows.windows, ccl.ccl, stats.stats,
            frontend.frontend_windows, ccl.propagate, stats.stats_select,
            match.match_scores, jpeg_tail.backhalf_planes,
-           jpeg_tail.upsample_color_pack)
+           jpeg_tail.upsample_color_pack, angles.readout)
 QUALITY = 92
 
 
@@ -136,7 +145,9 @@ def test_fuzz_frames_on_card_equal_cpu(dev, crops, cam, leg):
         want = {"frontend", "windows", "ccl", "stats"}
     else:
         want = {"frontend_windows", "propagate", "stats_select"}
-    assert {k for k, n in ran.items() if n} == want, ran
+    assert {k for k, n in ran.items() if n} == want | {"readout"}, ran
+    assert ran["readout"] == ran["windows" if cam == "five_dial" or
+                                 leg == "default" else "frontend_windows"]
     # the fuzz mix reaches past the easy rows
     assert (a.err != int(ErrCode.OK)).any() or n_frames() < 32
 
@@ -173,8 +184,8 @@ def test_fuzz_scorer_only_on_card_equal_cpu(dev, crops, cam):
     (x0, y0), (x1, y1) = camera.meter_rect
     k8 = match.fits(y1 - y0, x1 - x0, camera.template_h, camera.template_w)
     assert k8 == (cam == "default")
-    assert ran == {"windows", "propagate"} | ({"match_scores"} if k8
-                                               else set()), ran
+    assert ran == {"windows", "propagate", "readout"} | (
+        {"match_scores"} if k8 else set()), ran
     assert (a.err != int(ErrCode.OK)).any() or n_frames() < 32
 
 
@@ -205,5 +216,125 @@ def test_fuzz_jpeg_on_card_equal_pixel_path(dev, cam, layout):
     assert got.converged.all(), "CCL non-convergence under fuzz"
     assert_same_bits(got, ref, f"{cam} {layout} coef vs pixel")
     tail = "backhalf_planes" if layout == "plane" else "upsample_color_pack"
-    assert ran == {"frontend", "windows", "ccl", "stats", tail}, ran
+    assert ran == {"frontend", "windows", "ccl", "stats", "readout", tail}, ran
     assert (got.err != int(ErrCode.OK)).any() or n_frames() < 32
+
+
+# ---------------------------------------------------------- K12 readout --
+
+def readout_decoder(dev, cam, exact):
+    return MeterDecoder(CAMERAS[cam].make_params(), device=dev, exact=exact)
+
+
+def assert_readout_equals_plain(src, keymax, pa, label):
+    """K12 on the card against the plain stage on the same card tensors:
+    every output bit for bit; one launch."""
+    n = angles.readout.launches
+    got = angles.readout(src, keymax, pa)
+    assert angles.readout.launches == n + 1
+    want = angles.readout_plain(src, keymax, pa)
+    for name, a, b in zip(("position", "readable", "value"), got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if a.dtype.kind == "f":
+            a, b = a.view(np.uint64), b.view(np.uint64)
+        np.testing.assert_array_equal(a, b, err_msg=f"{label}: {name}")
+    return [t.cpu().numpy() for t in got]
+
+
+def window_inputs(dec, batch, gather):
+    """The decode's angle-stage inputs for crops ``batch``: K1 and K2,
+    then K3 and K4 (okey3, keymax) or K6 and the sort finalize (needle
+    region, keymax None), as [B, D, 4096]."""
+    dev, pa = dec.device, dec.param_arrays
+    packed = torch.as_tensor(tio.pack_crops(batch)).to(dev)
+    mx, my = frontend.frontend(packed, pa.template_u8, dec.score_c1,
+                               dec.score_c0)[1:]
+    bits = windows.windows(packed, mx, my, dec.geom, dec.disk,
+                           dec.hue_shift).reshape(-1, 64, 64)
+    B, D = packed.shape[0], len(dec.geom)
+    if gather == "okey3":
+        okey3 = ccl.ccl(bits)[0]
+        return okey3.reshape(B, D, -1), stats.stats(okey3)[0].reshape(B, D)
+    comp = ccl.analyze_batch(bits, dec.static_kwargs["static_bbox"])
+    return comp.needle_region.reshape(B, D, -1), None
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("gather", ["okey3", "region"])
+@pytest.mark.parametrize("cam", sorted(CAMERAS))
+def test_readout_fuzz_windows_equal_plain(dev, crops, cam, gather, exact):
+    """n_frames() fuzz frames' windows: K12 equals the plain stage on the
+    card, bit for bit."""
+    dec = readout_decoder(dev, cam, exact)
+    src, keymax = window_inputs(dec, crops(cam), gather)
+    _, readable, _ = assert_readout_equals_plain(
+        src, keymax, dec.param_arrays, f"{cam} {gather} exact={exact}")
+    assert readable.any()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("gather", ["okey3", "region"])
+@pytest.mark.parametrize("cam", sorted(CAMERAS))
+def test_readout_hand_windows_equal_plain(dev, cam, gather, exact):
+    """The hand-made windows (no needle, den = 0; n = 1..6 across the
+    trim's cut steps; the 0.75-turn tail; the whole annulus; keymax -1,
+    small and big blobs): K12 equals the plain stage on the card, bit for
+    bit."""
+    dec = readout_decoder(dev, cam, exact)
+    host = dec.params.arrays()
+    if not exact:
+        host = host._replace(**{k: getattr(host, k).astype(np.float32)
+                                for k in FAST_F32})
+    region = readout_windows.hand_regions(host, seed=len(cam))
+    okey3, keymax = readout_windows.okey3_of(region, seed=len(cam) + 1)
+    if gather == "okey3":
+        src, km = okey3, keymax
+    else:
+        src, km = region, None
+    assert_readout_equals_plain(
+        torch.as_tensor(src).to(dev),
+        None if km is None else torch.as_tensor(km).to(dev),
+        dec.param_arrays, f"{cam} {gather} exact={exact}")
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("cam", ["alt", "default"])
+def test_readout_carry_edges_equal_plain(dev, cam, exact):
+    """Crops rendered on assemble_value's carry edges (r4 near 2 and 8,
+    fractions near 0.45 and 0.55), both gathers: K12's positions and
+    values equal the plain stage's on the card, bit for bit."""
+    dec = readout_decoder(dev, cam, exact)
+    batch = CAMERAS[cam].render_crops(readout_windows.CARRY_EDGES)
+    for gather in ("okey3", "region"):
+        src, keymax = window_inputs(dec, batch, gather)
+        _, readable, _ = assert_readout_equals_plain(
+            src, keymax, dec.param_arrays, f"{cam} {gather} carry")
+        assert readable.all()
+
+
+@pytest.mark.parametrize("disk,ann", [(20, 20), (1000, 1000), (1280, 1280),
+                                      (4096, 4096), (20, 40), (1000, 33)])
+def test_readout_slot_counts_equal_plain(dev, crops, disk, ann):
+    """The flagship's geometry cut (or padded with invalid slots) to
+    ``disk`` disk and ``ann`` annulus slots a dial, so that tree_sum pads
+    at the first level (1000: 8 zeros), only at the second (1280: 40
+    partials to 64), not at all (4096) or sums one short run (20); and
+    unequal counts, whose warps' shared buffers start at offsets that are
+    no multiple of 8 unless rounded (20 and 40: 60 bytes a warp): K12
+    equals the plain stage on the card, bit for bit, on both gathers."""
+    dec = readout_decoder(dev, "default", True)
+    pa = dec.param_arrays
+
+    def fit(t, slots):
+        t = t[:, :slots]
+        pad = torch.zeros((t.shape[0], slots - t.shape[1]), dtype=t.dtype,
+                          device=t.device)
+        return torch.cat([t, pad], 1).contiguous()
+
+    pa = pa._replace(**{k: fit(getattr(pa, k), disk if k.startswith("disk_")
+                               else ann) for k in pa._fields
+                        if k.startswith(("disk_", "ann_"))})
+    for gather in ("okey3", "region"):
+        src, keymax = window_inputs(dec, crops("default")[:64], gather)
+        assert_readout_equals_plain(src, keymax, pa,
+                                    f"{disk}/{ann} slots {gather}")

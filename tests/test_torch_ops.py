@@ -26,7 +26,9 @@ from meterelf_tpu_torch.ops import color as t_color
 from meterelf_tpu_torch.ops import frontend as t_fe
 from meterelf_tpu_torch.ops import stats as t_stats
 from meterelf_tpu_torch.ops import windows as t_win
+from meterelf_tpu_torch.pipeline.decode import FAST_F32, MeterDecoder
 from meterelf_tpu_torch.types import Rect
+import readout_windows
 
 torch.set_num_threads(2)
 
@@ -297,3 +299,196 @@ def test_read_dials_and_value_match_jax():
     got = t_angles.assemble_value(torch.as_tensor(cases), pa.value_perm)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
+
+
+# ---------------------------------------------------- K12 readout ---
+
+READOUT_CAMERAS = {"default": t_syn.DEFAULT_CAMERA, "alt": t_syn.ALT_CAMERA,
+                   "five_dial": t_syn.FIVE_DIAL_CAMERA}
+
+
+def _readout_case(cam, exact=True):
+    """(host ParamArrays as the decoder ships them, DeviceParams on the
+    CPU, hand-made needle regions, their okey3 and keymax)."""
+    host = READOUT_CAMERAS[cam].make_params().arrays()
+    if not exact:
+        host = host._replace(**{k: getattr(host, k).astype(np.float32)
+                                for k in FAST_F32})
+    region = readout_windows.hand_regions(host, seed=len(cam))
+    okey3, keymax = readout_windows.okey3_of(region, seed=len(cam) + 1)
+    return host, t_params.to_device(host, "cpu"), region, okey3, keymax
+
+
+@pytest.mark.parametrize("gather", ["okey3", "region"])
+@pytest.mark.parametrize("cam", ["default", "five_dial"])
+def test_readout_on_cpu_is_the_plain_stage(cam, gather):
+    """On CPU tensors readout is read_dials (okey3 and keymax) or
+    read_dials_region, then assemble_value (4 dials; zeros otherwise),
+    exactly, and the kernel is not launched."""
+    _, pa, region, okey3, keymax = _readout_case(cam)
+    n = t_angles.readout.launches
+    if gather == "okey3":
+        src, km = torch.as_tensor(okey3), torch.as_tensor(keymax)
+        want = t_angles.read_dials(src, km, pa)
+    else:
+        src, km = torch.as_tensor(region), None
+        want = t_angles.read_dials_region(src, pa)
+    pos, readable, value = t_angles.readout(src, km, pa)
+    assert torch.equal(pos, want[0]) and torch.equal(readable, want[1])
+    if pos.shape[1] == 4:
+        assert torch.equal(value, t_angles.assemble_value(pos, pa.value_perm))
+    else:
+        assert torch.equal(value, torch.zeros(pos.shape[0],
+                                              dtype=torch.float64))
+    assert t_angles.readout.launches == n
+
+
+@pytest.mark.parametrize("cam", ["default", "five_dial"])
+def test_cpu_decode_takes_the_plain_angle_stage(cam, monkeypatch):
+    """A decode on the CPU (quad fused branch; the five-dial camera's
+    general branch) runs the angle stage as readout_plain, once, and
+    launches no kernel."""
+    camera = READOUT_CAMERAS[cam]
+    dec = MeterDecoder(camera.make_params(), device="cpu")
+    crops = camera.render_crops([[1.3, 4.6, 7.2, 9.8, 0.4][:len(
+        camera.make_params().dial_names)]] * 2)
+    calls = []
+    plain = t_angles.readout_plain
+
+    def spy(src, keymax, pa):
+        calls.append(keymax is None)
+        return plain(src, keymax, pa)
+
+    monkeypatch.setattr(t_angles, "readout_plain", spy)
+    n = t_angles.readout.launches
+    res = dec.decode_numpy(crops)
+    assert calls == [cam == "five_dial"]
+    assert t_angles.readout.launches == n
+    assert (res.err == 0).all()
+
+
+GEOMETRY = ("disk_idx", "disk_valid", "disk_sx2", "disk_sy2", "ann_idx",
+            "ann_valid", "ann_x", "ann_y", "ann_angle", "ann_sqd",
+            "neg_sign", "zero_turn")
+
+
+def _kept_counts(src, km, pa):
+    """(n, k_tail): the kept and the tail annulus slots of each window [B,
+    D] (the first half of _read_dial_core), to show which cases the
+    hand-made windows reach."""
+    if km is None:
+        gather = functools.partial(t_angles.read_dials_region, src)
+    else:
+        gather = functools.partial(t_angles.read_dials, src, km)
+    counts = []
+
+    def core(needle, tip, p):
+        mom = t_angles.tree_sum(torch.stack([
+            torch.where(needle, p.disk_sx2, 0.0),
+            torch.where(needle, p.disk_sy2, 0.0)]).double())
+        sign = p.neg_sign.double()
+        dot = (p.ann_x.double() * (sign * mom[0])[..., None]
+               + p.ann_y.double() * (sign * mom[1])[..., None])
+        kept = tip & (dot > 0)
+        amin = torch.where(kept, p.ann_angle, float("inf")).amin(
+            -1, keepdim=True)
+        tail = kept & ~(torch.abs(p.ann_angle - amin) < 0.75)
+        counts.append((kept.sum(-1).numpy(), tail.sum(-1).numpy()))
+        return None, None
+
+    orig = t_angles._read_dial_core
+    t_angles._read_dial_core = core
+    try:
+        gather(pa)
+    finally:
+        t_angles._read_dial_core = orig
+    return counts[0]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("gather", ["okey3", "region"])
+@pytest.mark.parametrize("cam", sorted(READOUT_CAMERAS))
+def test_readout_plain_matches_jax(cam, gather, exact):
+    """readout_plain on the hand-made windows (n = 0..6 on every dial, the
+    0.75-turn tail, the whole annulus, keymax -1, small and big blobs)
+    against the JAX package's read_dial_from_okey (okey3 gather) or
+    read_dial (region gather), sums in float64 as its decoder takes them,
+    and assemble_value: readable exact, position within ANGLE_TOL, value
+    exact (zeros for other than 4 dials)."""
+    host, pa, region, okey3, keymax = _readout_case(cam, exact)
+    if gather == "okey3":
+        src, km = okey3, keymax
+        fn = j_angles.read_dial_from_okey
+    else:
+        src, km = region, None
+        fn = j_angles.read_dial
+    pos, readable, value = (t.numpy() for t in t_angles.readout_plain(
+        torch.as_tensor(src), None if km is None else torch.as_tensor(km),
+        pa))
+    read = jax.jit(jax.vmap(functools.partial(fn, sum_dtype=jnp.float64)))
+    B, D = pos.shape
+    want_pos = np.zeros((B, D))
+    for d in range(D):
+        head = (src[:, d],) + (() if km is None else (km[:, d],))
+        geom = [np.broadcast_to(getattr(host, f)[d],
+                                (B,) + getattr(host, f)[d].shape)
+                for f in GEOMETRY]
+        r = read(*map(jnp.asarray, head + tuple(geom)))
+        np.testing.assert_array_equal(readable[:, d], np.asarray(r.readable))
+        want_pos[:, d] = np.asarray(r.position)
+    np.testing.assert_allclose(pos, want_pos, rtol=0, atol=ANGLE_TOL)
+    if D == 4:
+        want = jax.jit(jax.vmap(
+            lambda p: j_angles.assemble_value(p[host.value_perm])))(
+                jnp.asarray(want_pos))
+        np.testing.assert_array_equal(value, np.asarray(want))
+    else:
+        assert not value.any()
+    # the cases the windows are made to reach
+    n, k_tail = _kept_counts(
+        torch.as_tensor(src), None if km is None else torch.as_tensor(km),
+        pa)
+    cases = np.array(readout_windows.CASES)
+    case = cases[(np.arange(B)[:, None] + np.arange(D)[None]) % B]
+    for k in readout_windows.ARCS:
+        assert (n[case == f"arc{k}"] == k).all()
+    assert (n[case == "empty"] == 0).all()
+    assert (k_tail[case == "tail"] > 0).all()
+    assert (readable == (n > 0)).all()
+
+
+def _sequential_tree_sum(x):
+    """XLA's CPU order for a long sum, spelled out: zero-pad evenly to a
+    multiple of 32, each run of 32 from 0.0 in index order, again until 32
+    or fewer partials are left, then those from 0.0 in order."""
+    x = list(x)
+    while len(x) > t_angles.RUN:
+        pad = -len(x) % t_angles.RUN
+        x = [0.0] * (pad // 2) + x + [0.0] * (pad - pad // 2)
+        runs = []
+        for r in range(0, len(x), t_angles.RUN):
+            acc = 0.0
+            for v in x[r:r + t_angles.RUN]:
+                acc += v
+            runs.append(acc)
+        x = runs
+    acc = 0.0
+    for v in x:
+        acc += v
+    return acc
+
+
+@pytest.mark.parametrize("n", [1, 20, 32, 33, 256, 1000, 1024, 1280, 1536,
+                               4096])
+def test_readout_sum_order_is_tree_sum(n):
+    """angles.tree_sum, whose order K12 repeats, equals the order spelled
+    out one IEEE add at a time, bit for bit, signed zeros included, for
+    slot counts that pad at the first level, the second or none."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((3, 2, n)) * 10.0 ** rng.integers(-8, 9,
+                                                               (3, 2, n))
+    x[0] = -0.0
+    x[1, :, ::3] = -0.0
+    got = t_angles.tree_sum(torch.as_tensor(x)).numpy()
+    want = np.array([[_sequential_tree_sum(r) for r in row] for row in x])
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
