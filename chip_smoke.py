@@ -203,6 +203,9 @@ REPLACES = {
     # no Pallas kernel: XLA ops of read_dial_from_okey and assemble_value
     "readout": "meterelf_tpu/ops/angles.py:read_dial_from_okey "
                "+ assemble_value (plain graph)",
+    # no Pallas kernel: XLA ops of _decode_batch's error priority
+    "result_pack": "meterelf_tpu/pipeline/decode.py:_decode_batch error "
+                   "codes + converged (plain graph)",
 }
 SOURCES = {k: f"meterelf_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["backhalf_planes"] = SOURCES["upsample_color_pack"] = (
@@ -213,6 +216,7 @@ SOURCES["match_scores"] = SOURCES["match_corr"] = (
 SOURCES["frontend_windows"] = "meterelf_tpu_torch/csrc/frontend.cu"
 SOURCES["stats_select"] = "meterelf_tpu_torch/csrc/stats.cu"
 SOURCES["readout"] = "meterelf_tpu_torch/csrc/angles.cu"
+SOURCES["result_pack"] = "meterelf_tpu_torch/csrc/result.cu"
 
 
 def say(*a: object) -> None:
@@ -709,6 +713,7 @@ def main() -> int:
     from meterelf_tpu_torch.io import jpeg as tio
     from meterelf_tpu_torch.ops import angles, components, frontend
     from meterelf_tpu_torch.ops import jpeg_tail, jpegdec, match, stats
+    from meterelf_tpu_torch.ops import result as result_ops
     from meterelf_tpu_torch.ops import ccl as ccl_ops
     from meterelf_tpu_torch.ops import windows as win_ops
     from meterelf_tpu_torch.ops.color import (lightness_from_planes,
@@ -1069,6 +1074,60 @@ def main() -> int:
             f"image, geometry {geom} B; equal to plain on the okey3 gather "
             f"and on the flagship and five-dial regions")
 
+    def k13() -> None:
+        """K13 on the flagship decode's inputs (K1's match, K3's
+        convergence, K4's has_any, K12's outputs; rows 5 and 9 not loaded,
+        row 7's match NaN, row 11's at the threshold): the wrapper and the
+        C entry bit-equal to the plain result stage, then timed, warm and
+        after a read that empties L2."""
+        D = len(dec.geom)
+        max_val, mx, my = frontend.frontend(packed, pa.template_u8,
+                                            dec.score_c1, dec.score_c0)
+        max_val = max_val.clone()
+        max_val[7] = float("nan")
+        max_val[11] = dec._threshold
+        okey3, conv = ccl_ops.ccl(state["bits"])
+        keymax, has_any = stats.stats(okey3)
+        out = angles.readout(okey3.reshape(B_MAIN, D, -1),
+                             keymax.reshape(B_MAIN, D), pa)
+        load_ok = torch.ones(B_MAIN, dtype=torch.bool, device=dev)
+        load_ok[[5, 9]] = False
+        args = (load_ok, max_val, mx, my, dec._threshold, has_any, conv,
+                *out)
+        got = result_ops.result_pack(*args)
+        c_args, c_out = result_ops.c_args(*args)
+        check(lib.meterelf_result_pack(*c_args) == 0,
+              "K13 C entry: launch failed")
+        ref = result_ops.result_pack_plain(*args)
+        torch.cuda.synchronize()
+
+        def bits(t):
+            return t.view(torch.int64) if t.dtype == torch.float64 else (
+                t.view(torch.int32) if t.is_floating_point() else t)
+
+        for label, o in (("wrapper", got), ("C entry", c_out)):
+            check(all(torch.equal(bits(a), bits(b)) for a, b in zip(o, ref)),
+                  f"K13 {label} differs from the plain version")
+        codes = sorted(set(got[0].tolist()))
+        results["result_pack"]["max_abs_err"] = 0.0
+        results["result_pack"]["ms"] = cuda_ms(
+            lambda: result_ops.result_pack(*args), 20)
+        results["result_pack"]["kernel_ms"] = cuda_ms(
+            lambda: lib.meterelf_result_pack(*c_args), 20)
+        results["result_pack"]["cold_ms"] = cold_ms(
+            lambda: lib.meterelf_result_pack(*c_args), 20, state["flush"])
+        results["result_pack"]["plain_ms"] = cuda_ms(
+            lambda: result_ops.result_pack_plain(*args), 5)
+        # the inputs read once (13 B a row, 11 B a dial, the value) and
+        # the buffer written once
+        nbytes = result_ops.layout(B_MAIN, D)[1]
+        results["result_pack"].update(bound(
+            B_MAIN * (13 + 11 * D + 8) + nbytes, 0, INT32_OPS_PER_S))
+        say(f"K13: wrapper {results['result_pack']['ms']} ms, C entry "
+            f"{results['result_pack']['kernel_ms']} ms (L2 emptied first "
+            f"{results['result_pack']['cold_ms']} ms); buffer {nbytes} B; "
+            f"error codes {codes}; equal to plain")
+
     def k10() -> None:
         fy, fcb, fcr, qt = state["feed_dev"][:4]
         args = (fy, fcb, fcr, qt, win, pad_hw)
@@ -1313,7 +1372,7 @@ def main() -> int:
                      ("upsample_color_pack", k11), ("propagate", k6),
                      ("match_scores", k8), ("frontend_windows", k5),
                      ("stats_select", k7), ("match_corr", k9),
-                     ("readout", k12))
+                     ("readout", k12), ("result_pack", k13))
     for name, fn in kernel_phases:
         phase(f"kernel {name}", fn)
         r = results[name]
@@ -1326,7 +1385,7 @@ def main() -> int:
 
     # ---- phase 4: the crop decode path and the coefficient path ----
     crop_kernels = (frontend.frontend, win_ops.windows, ccl_ops.ccl,
-                    stats.stats, angles.readout)
+                    stats.stats, angles.readout, result_ops.result_pack)
     coef_kernels = crop_kernels + (jpeg_tail.backhalf_planes,
                                    jpeg_tail.upsample_color_pack)
     general_kernels = (ccl_ops.propagate, match.match_scores)
@@ -1342,11 +1401,12 @@ def main() -> int:
         return {fn.__name__: fn.launches for fn in fns}
 
     def check_readout(launches: dict, label: str) -> None:
-        """K12 reads each decode once: a decode launches K3 (fused) or
-        K6 (every other branch) once, a rescue decodes again."""
+        """K12 and K13 read each decode once: a decode launches K3 (fused)
+        or K6 (every other branch) once, a rescue decodes again."""
         n = launches["ccl"] + launches["propagate"]
-        check(n > 0 and launches["readout"] == n,
-              f"{label}: K12 must launch once a decode: {launches}")
+        check(n > 0 and launches["readout"] == n
+              and launches["result_pack"] == n,
+              f"{label}: K12 and K13 must launch once a decode: {launches}")
 
     def crop_run() -> None:
         dec.decode_numpy(crops[:8])   # warm-up (library, allocator)
@@ -1392,8 +1452,8 @@ def main() -> int:
         launches = counts(coef_kernels)
         for name, n in launches.items():
             results[name]["launches"] = n
-        check(launches["readout"] == 3,
-              f"K12 must read each of the 3 steps once: {launches}")
+        check(launches["readout"] == 3 and launches["result_pack"] == 3,
+              f"K12 and K13 must read each of the 3 steps once: {launches}")
         check_readout(counts(all_kernels), "coefficient path")
         say(f"coefficient path: {B_MAIN} flagship + {B_ALT} ALT JPEG feeds "
             f"(compact planes) and {B_MAIN} flagship (block layout) in "
@@ -1557,10 +1617,10 @@ def main() -> int:
         for (fe, qs), d, want in (
                 (("merged", "hist_pallas"), mh,
                  {"frontend_windows": 1, "propagate": 1, "stats_select": 1,
-                  "readout": 1}),
+                  "readout": 1, "result_pack": 1}),
                 (("merged", "fused"), mf,
                  {"frontend_windows": 1, "ccl": 1, "stats": 1,
-                  "readout": 1})):
+                  "readout": 1, "result_pack": 1})):
             reset(all_kernels)
             t = time.perf_counter()
             res = d.decode_numpy(crops)
@@ -1592,7 +1652,7 @@ def main() -> int:
             f"flagship JPEG feeds; launches {launches}")
         check(launches == {k: int(k in ("frontend_windows", "propagate",
                                         "stats_select", "backhalf_planes",
-                                        "readout"))
+                                        "readout", "result_pack"))
                            for k in launches},
               f"variant coefficient step launches {launches}")
         check_readings("variant merged + hist_pallas coef", res,
@@ -1771,8 +1831,8 @@ def main() -> int:
                 check(all(launches[fn.__name__] > 0 for fn in crop_kernels)
                       and sum(launches.values()) == sum(
                           launches[fn.__name__] for fn in crop_kernels),
-                      f"cli {label}: K1-K4 and K12 (and only they) must "
-                      "launch")
+                      f"cli {label}: K1-K4, K12 and K13 (and only they) "
+                      "must launch")
                 check_readout(launches, f"cli {label}")
                 return recs, steady
 
@@ -1944,7 +2004,8 @@ def main() -> int:
                 for k, n in launches.items():
                     results[k]["stream_launches"] = n
                 want = {k: int(k in ("frontend", "windows", "ccl", "stats",
-                                     "backhalf_planes", "readout"))
+                                     "backhalf_planes", "readout",
+                                     "result_pack"))
                         * N_SHORT // B_SHORT
                         for k in launches}
                 say(f"stream (card): stream_decode_bytes launches {launches}")
@@ -2366,7 +2427,7 @@ def main() -> int:
         got = to_host_later(res)()
         launches = counts(all_kernels)
         want = {k: n_dev * int(k in ("frontend", "windows", "ccl", "stats",
-                                     "readout"))
+                                     "readout", "result_pack"))
                 for k in launches}
         check(launches == want, f"mesh decode launches {launches}")
         bits_equal(got, plain, "crop decode")
@@ -2397,7 +2458,8 @@ def main() -> int:
         got_c = to_host_later(res)()
         launches = counts(all_kernels)
         want = {k: n_dev * int(k in ("frontend", "windows", "ccl", "stats",
-                                     "backhalf_planes", "readout"))
+                                     "backhalf_planes", "readout",
+                                     "result_pack"))
                 for k in launches}
         check(launches == want, f"mesh step launches {launches}")
         bits_equal(got_c, plain_c, "coefficient step")

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "meterelf_readout": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
                          _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P],
+    "meterelf_result_pack": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -135,6 +135,28 @@ int meterelf_readout(const void* src, int region, const int32_t* keymax,
                      double* position, uint8_t* readable, double* value,
                      void* stream);
 
+// K13: the decode's error codes and converged reduction, and every
+// BatchResult field, per row of B images x D dials (1 <= D <= 8).
+// load_ok [B] u8, max_val [B] f32, mx/my [B] i32; threshold the match
+// threshold as f32; has_any and conv [B, D] u8 (a dial's masked image is
+// nonempty; its CCL converged); position [B, D] f64, readable [B, D] u8
+// and value [B] f64 (K12's outputs). Out, each a device pointer (into
+// one buffer, ops/result.py layout): err, first_bad_dial,
+// unreadable_bits [B] i32; match_val [B] f32; match_x, match_y [B] i32;
+// dial_pos [B, D] f64; readable_out [B, D] u8; value_out [B] f64;
+// converged [B] u8.
+int meterelf_result_pack(const uint8_t* load_ok, const float* max_val,
+                         const int32_t* mx, const int32_t* my,
+                         float threshold, const uint8_t* has_any,
+                         const uint8_t* conv, const double* position,
+                         const uint8_t* readable, const double* value,
+                         int B, int D, int32_t* err,
+                         int32_t* first_bad_dial, int32_t* unreadable_bits,
+                         float* match_val, int32_t* match_x,
+                         int32_t* match_y, double* dial_pos,
+                         uint8_t* readable_out, double* value_out,
+                         uint8_t* converged, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

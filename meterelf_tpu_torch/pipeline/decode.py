@@ -22,10 +22,12 @@ the same static arguments (``MeterDecoder.static_kwargs``):
   finalize -> angles.
 
 Every branch ends in f64 angle statistics and the carry-corrected value
-(4 dials; K12 readout, ops/angles.py) and the reference's error priority
-(decode.py:440-467). On a CUDA device every kernel stage launches its
-CUDA kernel; on the CPU the same code runs each kernel's plain torch
-version.
+(4 dials; K12 readout, ops/angles.py), then the reference's error
+priority (decode.py:440-467) and the BatchResult, whose ten fields are
+views of one buffer (K13 result_pack, ops/result.py), so that
+``to_host_later`` copies a result to the host once. On a CUDA device
+every kernel stage launches its CUDA kernel; on the CPU the same code
+runs each kernel's plain torch version.
 
 The quad branch takes the JAX decode's two variant knobs, read when the
 decoder is built (``MeterDecoder(frontend=, quad_stats=)``, else the
@@ -69,7 +71,6 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..errors import ErrCode
 from ..params import Params, to_device
 from ..profiling import count, span
 from ..ops import match
@@ -81,6 +82,7 @@ from ..ops.frontend import (frontend, frontend_ok, frontend_windows, locate,
                             score_constants)
 from ..ops.jpeg_tail import backhalf_blocks, backhalf_planes
 from ..ops.jpegdec import CoefWindow, coef_window
+from ..ops.result import result_pack
 from ..ops.stats import stats
 from ..ops.windows import windows
 
@@ -295,21 +297,11 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
                    else (comp.needle_region, None))
         positions, readable, value = readout(src.view(B, D, W * W), km, pa)
     with span("meterelf.decode.errors"):
-        err, first_bad, unreadable_bits = _error_codes(
-            load_ok, max_val >= dec._threshold, has_any.reshape(B, D),
-            readable)
-        return BatchResult(
-            err=err,
-            first_bad_dial=first_bad,
-            unreadable_bits=unreadable_bits,
-            match_val=max_val,
-            match_x=mx,
-            match_y=my,
-            dial_pos=positions,
-            readable=readable,
-            value=value,
-            converged=conv.reshape(B, D).all(dim=1),
-        )
+        # K13: the error codes, the converged reduction and the ten
+        # fields, views of one buffer (ops/result.py)
+        return BatchResult(*result_pack(
+            load_ok, max_val, mx, my, dec._threshold, has_any, conv,
+            positions, readable, value))
 
 
 def _stats_bbox(mask_full: np.ndarray, sb: int = 48
@@ -405,50 +397,85 @@ def to_host_later(res: Any) -> Callable[[], Any]:
     """Start copying a result (a BatchResult, or any tuple of tensors and
     arrays) to the host behind the work queued so far, without waiting;
     returns a function that waits for those copies alone and gives every
-    field as numpy."""
+    field as numpy.
+
+    When every CUDA tensor of ``res`` is a view of one storage (the
+    decode's packed BatchResult, ops/result.py), that storage is copied
+    once into a fresh pinned buffer and those fields are numpy views of
+    it at the tensors' own offsets and strides; a fresh buffer a call, so
+    that arrays a caller keeps stay valid. Otherwise each tensor is
+    copied on its own."""
     with span("meterelf.result.copy"):
-        host = [v.to("cpu", non_blocking=True) if torch.is_tensor(v) else v
-                for v in res]
+        cuda = [v for v in res if torch.is_tensor(v) and v.is_cuda]
+        storage = _one_storage(cuda)
+        if storage is not None:
+            dev = cuda[0].device
+            whole = torch.empty(0, dtype=torch.uint8, device=dev).set_(
+                storage)
+            buf = torch.empty(storage.nbytes(), dtype=torch.uint8,
+                              pin_memory=True)
+            buf.copy_(whole, non_blocking=True)
+            host = [_HostView(v) if torch.is_tensor(v) and v.is_cuda
+                    else v for v in res]
+        else:
+            buf = None
+            host = [v.to("cpu", non_blocking=True) if torch.is_tensor(v)
+                    else v for v in res]
         done = None
-        for v in res:
-            if torch.is_tensor(v) and v.is_cuda:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(v.device))
-                break
+        if cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(cuda[0].device))
 
     def fetch() -> Any:
         with span("meterelf.result.wait"):
             if done is not None:
                 done.synchronize()
-            return type(res)(*[v.numpy() if torch.is_tensor(v)
-                               else np.asarray(v) for v in host])
+            raw = None if buf is None else buf.numpy()
+            return type(res)(*[
+                v.of(raw) if isinstance(v, _HostView)
+                else v.numpy() if torch.is_tensor(v) else np.asarray(v)
+                for v in host])
 
     return fetch
+
+
+def _one_storage(ts: Sequence[torch.Tensor]) -> Any:
+    """The untyped storage that every tensor of ``ts`` views, else None
+    (also for no tensors, or a dtype with no numpy twin)."""
+    if not ts or any(t.dtype not in _NUMPY for t in ts):
+        return None
+    st = ts[0].untyped_storage()
+    ptr = st.data_ptr()
+    if any(t.untyped_storage().data_ptr() != ptr for t in ts[1:]):
+        return None
+    return st
+
+
+class _HostView:
+    """Where a CUDA tensor lies in its storage: ``of(raw)`` is the numpy
+    array at the same place in the storage's bytes ``raw``, copied to the
+    host."""
+    __slots__ = ("dtype", "shape", "strides", "offset")
+
+    def __init__(self, t: torch.Tensor) -> None:
+        size = t.itemsize
+        self.dtype = _NUMPY[t.dtype]
+        self.shape = t.shape
+        # None: C order
+        self.strides = (None if t.is_contiguous()
+                        else tuple(s * size for s in t.stride()))
+        self.offset = t.storage_offset() * size
+
+    def of(self, raw: np.ndarray) -> np.ndarray:
+        return np.ndarray(self.shape, self.dtype, raw, self.offset,
+                          self.strides)
+
+
+_NUMPY = {d: torch.empty(0, dtype=d).numpy().dtype
+          for d in (torch.bool, torch.uint8, torch.int32, torch.int64,
+                    torch.float32, torch.float64)}
 
 
 def _to_numpy(res: Any) -> Any:
     """``res`` on the host as numpy, with one wait for all its fields."""
     return to_host_later(res)()
-
-
-def _error_codes(load_ok: torch.Tensor, match_ok: torch.Tensor,
-                 has_any: torch.Tensor, readable: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The reference's raise order (decode.py:440-467): load failure,
-    then template match below threshold, then the first dial with no
-    needle contours, then any unreadable dial."""
-    i32 = torch.int32
-    D = has_any.shape[1]
-    no_contours = ~has_any
-    first_bad = torch.argmax(no_contours.to(i32), dim=1).to(i32)
-    unreadable = ~readable
-    # built on the device from Python scalars: no host-to-device copy
-    weights = torch.arange(D, dtype=i32, device=readable.device)
-    bits = (unreadable.to(i32) << weights).sum(dim=1).to(i32)
-    err = torch.full_like(first_bad, int(ErrCode.OK))
-    for cond, c in ((unreadable.any(dim=1), ErrCode.DIAL_ANGLE),
-                    (no_contours.any(dim=1), ErrCode.NEEDLE_CONTOURS),
-                    (~match_ok, ErrCode.DIALS_NOT_FOUND),
-                    (~load_ok, ErrCode.LOAD)):
-        err = torch.where(cond, int(c), err)
-    return err, first_bad, bits

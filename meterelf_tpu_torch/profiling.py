@@ -30,8 +30,8 @@ The spans the port opens, all flat within one batch of the step:
 | ``meterelf.decode.ccl`` | K3, or K6 (ops/ccl.analyze_batch) |
 | ``meterelf.decode.stats`` | K4, or components.finalize |
 | ``meterelf.decode.angles`` | the angle statistics and the value (ops/angles.py) |
-| ``meterelf.decode.errors`` | the error codes and the BatchResult |
-| ``meterelf.result.copy`` | to_host_later's copies and event record |
+| ``meterelf.decode.errors`` | K13 result_pack: the error codes, the converged reduction and the BatchResult in one buffer (ops/result.py) |
+| ``meterelf.result.copy`` | to_host_later's copy (one of a packed result's buffer into pinned memory, else one a field) and event record |
 | ``meterelf.result.wait`` | the host waiting for those copies, and the numpy views |
 | ``meterelf.stream.{dispatch,drain,rescue}`` | the stream's StageTimers stages, around the spans above |
 | ``meterelf.stream.feed`` | the stream's host entropy decode (bytes stream) |

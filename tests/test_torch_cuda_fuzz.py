@@ -34,7 +34,15 @@ ports of tests/test_tpu_fuzz.py's:
   sort finalize), the hand-made windows of tests/readout_windows.py,
   rendered crops on the value's carry edges, and slot counts that pad
   tree_sum at the first level, at the second or not at all, equal and
-  unequal between the disk and the annulus.
+  unequal between the disk and the annulus;
+- K13 result_pack against the plain result stage
+  (ops/result.result_pack_plain) on the card and the reference's raise
+  order, bit for bit: the seeded and hand-made rows of
+  tests/result_cases.py at B = 0, 1, odd and 256+ and D = 4, 5, 8; each
+  branch that ends in K12 (quad fused, quad hist_pallas, general,
+  scorer-only) decoding the fuzz frames with K13 and with the plain
+  stage; the one copy to the host (to_host_later) against per-field
+  copies, and kept arrays unchanged after later batches.
 """
 import os
 
@@ -43,13 +51,16 @@ import pytest
 import torch
 
 import readout_windows
+import result_cases
 from fuzz_frames import fuzz_frames
 from meterelf_tpu_torch import synthetic
 from meterelf_tpu_torch.errors import ErrCode
 from meterelf_tpu_torch.io import jpeg as tio
 from meterelf_tpu_torch.ops import (angles, ccl, frontend, jpeg_tail, jpegdec,
-                                    match, stats, windows)
-from meterelf_tpu_torch.pipeline.decode import (FAST_F32, MeterDecoder,
+                                    match, result, stats, windows)
+from meterelf_tpu_torch.pipeline import decode as decode_mod
+from meterelf_tpu_torch.pipeline.decode import (FAST_F32, BatchResult,
+                                                MeterDecoder,
                                                 make_coef_decode_fn,
                                                 to_host_later)
 
@@ -338,3 +349,129 @@ def test_readout_slot_counts_equal_plain(dev, crops, disk, ann):
         src, keymax = window_inputs(dec, crops("default")[:64], gather)
         assert_readout_equals_plain(src, keymax, pa,
                                     f"{disk}/{ann} slots {gather}")
+
+
+# ------------------------------------------------------ K13 result_pack --
+
+RESULT_SIZES = [(0, 4), (1, 4), (7, 4), (len(result_cases.HAND), 4),
+                (256, 4), (0, 5), (1, 5), (7, 5), (257, 5), (300, 8)]
+BRANCHES = {"quad": ("default", {}),
+            "hist_pallas": ("default", {"quad_stats": "hist_pallas"}),
+            "general": ("five_dial", {}),
+            "scorer": ("default", {})}
+
+
+def pack_on(fn, x, dev):
+    t = {k: torch.as_tensor(v).to(dev)
+         for k, v in result_cases.flat(x).items()}
+    return fn(t["load_ok"], t["max_val"], t["mx"], t["my"],
+              result_cases.THRESHOLD, t["has_any"], t["conv"],
+              t["position"], t["readable"], t["value"])
+
+
+@pytest.mark.parametrize("B,D", RESULT_SIZES)
+def test_result_pack_equals_plain(dev, B, D):
+    """Seeded and hand-made rows (tests/result_cases.py): K13 equals the
+    plain stage run on the card and the reference's order, every field
+    bit for bit; one launch a call with rows, none without; the fields
+    are views of one buffer in the layout of (B, D)."""
+    for seed in range(3):
+        x = result_cases.cases(B, D, seed)
+        n = result.result_pack.launches
+        got = BatchResult(*pack_on(result.result_pack, x, dev))
+        assert result.result_pack.launches == n + (B > 0)
+        want = pack_on(result.result_pack_plain, x, dev)
+        assert result.result_pack.launches == n + (B > 0)
+        label = f"B={B} D={D} seed={seed}"
+        assert_same_bits(to_host_later(got)(),
+                         BatchResult(*(v.cpu().numpy() for v in want)),
+                         label)
+        assert_same_bits(to_host_later(got)(),
+                         BatchResult(*result_cases.expected(x)), label)
+        fields, nbytes = result.layout(B, D)
+        storage = got.err.untyped_storage()
+        assert storage.nbytes() == nbytes
+        for v, (off, dtype, shape) in zip(got, fields):
+            assert v.untyped_storage().data_ptr() == storage.data_ptr()
+            assert v.storage_offset() * v.element_size() == off
+            assert v.dtype == dtype and tuple(v.shape) == shape
+
+
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_result_pack_in_decode_equals_plain(dev, crops, branch,
+                                            monkeypatch):
+    """n_frames() fuzz frames, one row in 7 not loaded, down each branch
+    that ends in K12 (quad fused, quad hist_pallas, general, scorer-only):
+    the decode's BatchResult with K13 equals the one with the plain stage
+    on the card, every field bit for bit; K13 launches once a decode."""
+    cam, kw = BRANCHES[branch]
+    dec = MeterDecoder(CAMERAS[cam].make_params(), device=dev, **kw)
+    if branch == "scorer":
+        dec.static_kwargs["static_win_origin"] = None
+    batch = crops(cam)
+    ok = np.arange(len(batch)) % 7 != 3
+    n, r = result.result_pack.launches, angles.readout.launches
+    got = to_host_later(dec(batch, ok))()
+    assert result.result_pack.launches == n + 1
+    assert angles.readout.launches == r + 1
+    monkeypatch.setattr(decode_mod, "result_pack", result.result_pack_plain)
+    want = to_host_later(dec(batch, ok))()
+    assert result.result_pack.launches == n + 1
+    assert_same_bits(got, want, branch)
+    assert len(set(got.err.tolist())) >= 2 or n_frames() < 32
+
+
+def test_result_pack_refuses_bad_inputs(dev):
+    """Inputs of another dtype, size or device, more dials than the
+    kernel takes: refused before any launch; a good call still runs."""
+    x = {k: torch.as_tensor(v).to(dev)
+         for k, v in result_cases.flat(result_cases.cases(5, 4, 0)).items()}
+
+    def call(**edits):
+        t = {**x, **edits}
+        return result.result_pack(
+            t["load_ok"], t["max_val"], t["mx"], t["my"],
+            result_cases.THRESHOLD, t["has_any"], t["conv"], t["position"],
+            t["readable"], t["value"])
+
+    n = result.result_pack.launches
+    with pytest.raises(TypeError):
+        call(max_val=x["max_val"].double())
+    with pytest.raises(TypeError):
+        call(mx=x["mx"].long())
+    with pytest.raises(ValueError):
+        call(has_any=x["has_any"][:-1])
+    with pytest.raises(ValueError):
+        call(load_ok=x["load_ok"].cpu())
+    with pytest.raises(ValueError):
+        call(conv=x["conv"].reshape(5, 4).t())
+    nine = {k: torch.as_tensor(v).to(dev) for k, v in
+            result_cases.flat(result_cases.cases(5, 9, 0)).items()}
+    with pytest.raises(ValueError):
+        call(**nine)
+    assert result.result_pack.launches == n
+    call()
+    assert result.result_pack.launches == n + 1
+
+
+def test_to_host_later_one_copy_keeps_arrays(dev, crops):
+    """The packed result reaches the host as numpy views of one pinned
+    buffer, equal to the per-field copies of the same tensors; arrays a
+    caller keeps stay valid while later batches reuse the pinned cache."""
+    dec = MeterDecoder(CAMERAS["default"].make_params(), device=dev)
+    batch = crops("default")[:64]
+    res = dec(batch)
+    assert decode_mod._one_storage(list(res)) is not None
+    kept = to_host_later(res)()
+    loose = to_host_later(BatchResult(*(v.clone() for v in res)))()
+    assert type(kept) is type(loose) is BatchResult
+    assert_same_bits(kept, loose, "one copy vs per field")
+    assert all(isinstance(v, np.ndarray) and v.base is kept.err.base
+               for v in kept)
+    snapshot = BatchResult(*(np.array(v) for v in kept))
+    del res, loose
+    for i in range(24):
+        other = to_host_later(dec(np.roll(batch, i + 1, axis=0)))()
+        del other
+    torch.cuda.synchronize()
+    assert_same_bits(kept, snapshot, "kept arrays after later batches")
