@@ -58,7 +58,9 @@ Runs from the root of a checkout, with nothing built beforehand:
    rendered positions, the first 16 rows equal to the CPU (plain
    versions), the variants equal to the default decode, the kernels of
    each path launched as the path requires (K12 once a decode on every
-   path); then a dense-noise window
+   path); the coefficient step's CUDA graph counters, a second flagship
+   step replaying its two graphs (no capture), equal to the first and
+   with K12 and K13 once; then a dense-noise window
    through the CCL kernel and through the hist_pallas variant's analysis
    (K6, K7), non-converged under the default caps and converged under the
    rescue caps, equal to the plain version both times;
@@ -175,6 +177,8 @@ N_CAL = 64        # calibration frames at random offsets
 N_FUZZ = 64       # mesh phase: distinct fuzz JPEGs, tiled to B_MAIN
 FUZZ_SEED = 2027  # their tests/fuzz_frames.py seed (the slots' is +1)
 MESH_ROUNDS = 10  # mesh phase: rounds of the in-turn timings
+# the coefficient step's CUDA graph counters (pipeline/graphs.py)
+GRAPH_COUNTERS = ("step_graph_captures", "step_graph_replays")
 
 # Rates of the bounds (NVIDIA H100 SXM at 700 W): HBM3 and the dense int8
 # tensor-core and fp32 peaks of NVIDIA's H100 SXM specification. int32:
@@ -1384,6 +1388,8 @@ def main() -> int:
             break   # later kernels consume this one's output
 
     # ---- phase 4: the crop decode path and the coefficient path ----
+    from meterelf_tpu_torch.profiling import counts as program_counts
+
     crop_kernels = (frontend.frontend, win_ops.windows, ccl_ops.ccl,
                     stats.stats, angles.readout, result_ops.result_pack)
     coef_kernels = crop_kernels + (jpeg_tail.backhalf_planes,
@@ -1481,6 +1487,25 @@ def main() -> int:
               f"{launches}")
         check(not any(counts(general_kernels + variant_kernels).values()),
               "the default quad branch launched K5-K9")
+        # the step's CUDA graphs (pipeline/graphs.py): a second flagship
+        # step of one shape replays its pair and captures nothing
+        g0 = program_counts()
+        reset(all_kernels)
+        again = to_numpy(step(None, *feed))
+        g1 = program_counts()
+        graph = {k: g1.get(k, 0) - g0.get(k, 0) for k in GRAPH_COUNTERS}
+        total = {k: g1.get(k, 0) for k in GRAPH_COUNTERS}
+        say(f"coefficient path graphs: {total} so far; a second flagship "
+            f"step {graph}")
+        check(total["step_graph_captures"] > 0
+              and graph == {"step_graph_captures": 0,
+                            "step_graph_replays": 2},
+              f"the second flagship step must replay its two graphs: "
+              f"{graph}")
+        check_readout(counts(all_kernels), "coefficient path, replayed")
+        for f in res._fields:
+            check(np.array_equal(getattr(res, f), getattr(again, f)),
+                  f"the replayed step differs from the first in {f}")
 
     def general_run() -> None:
         """FIVE_DIAL_CAMERA (D = 5: the general-geometry branch, K1, K2,

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..params import DeviceParams
-from .launch import check_cuda, raise_on_error, stream_of
+from .launch import check_cuda, counted, raise_on_error, stream_of
 
 RUN = 32   # XLA CPU's tree-reduction window
 N = 64 * 64        # pixels of a dial window; K12 takes 1..N slots a dial
@@ -274,4 +274,4 @@ def readout(src: torch.Tensor, keymax: Optional[torch.Tensor],
     return out
 
 
-readout.launches = 0  # type: ignore[attr-defined]
+counted(readout)

@@ -31,7 +31,7 @@ from .. import _build
 from ..profiling import span
 from . import components
 from .components import W
-from .launch import check_cuda, raise_on_error, stream_of
+from .launch import check_cuda, counted, raise_on_error, stream_of
 
 
 def c_args(bits: torch.Tensor, caps: Optional[Sequence[int]],
@@ -85,8 +85,8 @@ def propagate(bits: torch.Tensor, caps: Optional[Sequence[int]] = None
     return out
 
 
-ccl.launches = 0  # type: ignore[attr-defined]
-propagate.launches = 0  # type: ignore[attr-defined]
+counted(ccl)
+counted(propagate)
 
 
 def analyze_batch(bits: torch.Tensor,

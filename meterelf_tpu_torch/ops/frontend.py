@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .color import lightness_from_planes, unpack_planes
-from .launch import check_cuda, raise_on_error, stream_of
+from .launch import check_cuda, counted, raise_on_error, stream_of
 from .windows import WIN, Geom, host_geom, windows_plain
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
@@ -261,7 +261,7 @@ def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
     return tuple(out)
 
 
-frontend.launches = 0  # type: ignore[attr-defined]
+counted(frontend)
 
 
 def frontend_windows_plain(packed: torch.Tensor, template_u8: torch.Tensor,
@@ -305,4 +305,4 @@ def frontend_windows(packed: torch.Tensor, template_u8: torch.Tensor,
     return tuple(out)
 
 
-frontend_windows.launches = 0  # type: ignore[attr-defined]
+counted(frontend_windows)

@@ -32,7 +32,7 @@ import torch
 from .. import _build
 from . import jpegdec
 from .jpegdec import CoefWindow
-from .launch import check_cuda, raise_on_error, stream_of
+from .launch import check_cuda, counted, raise_on_error, stream_of
 
 
 def _geom(kernel: str, gate, win: CoefWindow,
@@ -105,7 +105,7 @@ def backhalf_planes(fy: torch.Tensor, fcb: torch.Tensor, fcr: torch.Tensor,
     return out
 
 
-backhalf_planes.launches = 0  # type: ignore[attr-defined]
+counted(backhalf_planes)
 
 
 def backhalf_bands(win: CoefWindow) -> Tuple[int, int, int]:
@@ -173,7 +173,7 @@ def upsample_color_pack(sy: torch.Tensor, scb: torch.Tensor,
     return out
 
 
-upsample_color_pack.launches = 0  # type: ignore[attr-defined]
+counted(upsample_color_pack)
 
 
 def backhalf_blocks(coef_y: torch.Tensor, coef_cb: torch.Tensor,

@@ -1,9 +1,20 @@
-"""Checks shared by the kernel wrappers before and after a launch."""
+"""Checks shared by the kernel wrappers before and after a launch, and
+their launch counters."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Callable, List, Optional
 
 import torch
+
+# every kernel wrapper with a ``launches`` counter (``counted``)
+COUNTED: List[Callable[..., Any]] = []
+
+
+def counted(wrapper: Callable[..., Any]) -> None:
+    """Give the kernel wrapper a ``launches`` counter, which the wrapper
+    raises by one a launch, and register it in COUNTED."""
+    wrapper.launches = 0  # type: ignore[attr-defined]
+    COUNTED.append(wrapper)
 
 
 def check_cuda(kernel: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,

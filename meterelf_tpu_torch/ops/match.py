@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .frontend import SMEM_LIMIT, corr_box8, smem_bytes
-from .launch import check_cuda, raise_on_error, stream_of
+from .launch import check_cuda, counted, raise_on_error, stream_of
 
 # pallas_match.py:32-35: the TPU kernels' padded shapes
 H_PAD = 256
@@ -107,7 +107,7 @@ def match_scores(lightness: torch.Tensor, template_u8: torch.Tensor,
     return scores
 
 
-match_scores.launches = 0  # type: ignore[attr-defined]
+counted(match_scores)
 
 
 def match_corr_plain(lightness: torch.Tensor, template_u8: torch.Tensor
@@ -147,7 +147,7 @@ def match_corr(lightness: torch.Tensor, template_u8: torch.Tensor
     return corr
 
 
-match_corr.launches = 0  # type: ignore[attr-defined]
+counted(match_corr)
 
 
 def match_scores_v1(lightness: torch.Tensor, template_u8: torch.Tensor,

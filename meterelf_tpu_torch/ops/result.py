@@ -19,13 +19,13 @@ version run on the card.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from .. import _build
 from ..errors import ErrCode
-from .launch import check_cuda, raise_on_error, stream_of
+from .launch import check_cuda, counted, raise_on_error, stream_of
 
 ALIGN = 8          # every field starts on a multiple of 8 bytes
 MAX_DIALS = 8      # csrc/result.cu kMaxDials
@@ -60,14 +60,28 @@ def layout(B: int, D: int) -> Tuple[Layout, int]:
 def packed(B: int, D: int, device: torch.device
            ) -> Tuple[torch.Tensor, ...]:
     """The ten typed views of a fresh buffer for B rows of D dials."""
-    fields, nbytes = layout(B, D)
-    buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return views(torch.empty(layout(B, D)[1], dtype=torch.uint8,
+                             device=device), B, D)
+
+
+def views(buf: torch.Tensor, B: int, D: int) -> Tuple[torch.Tensor, ...]:
+    """The ten typed views of ``buf``, a u8 buffer of ``layout(B, D)``'s
+    size."""
+    fields, _ = layout(B, D)
     # one typed base a dtype, then one view a field
     bases = {dtype: buf.view(dtype) for dtype in {d for _, d, _ in fields}}
     return tuple(
         bases[dtype].as_strided(shape, (D, 1) if len(shape) == 2 else (1,),
                                 off // dtype.itemsize)
         for off, dtype, shape in fields)
+
+
+def copied(fields: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The ten typed views of a fresh copy of the buffer whose views
+    ``fields`` are (as ``packed`` lays them): one copy on its device."""
+    B, D = fields[6].shape      # dial_pos
+    buf = torch.empty(0, dtype=torch.uint8, device=fields[0].device)
+    return views(buf.set_(fields[0].untyped_storage()).clone(), B, D)
 
 
 def error_codes(load_ok: torch.Tensor, match_ok: torch.Tensor,
@@ -171,4 +185,4 @@ def result_pack(load_ok: torch.Tensor, max_val: torch.Tensor,
     return out
 
 
-result_pack.launches = 0  # type: ignore[attr-defined]
+counted(result_pack)

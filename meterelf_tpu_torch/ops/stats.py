@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .launch import check_cuda, raise_on_error, stream_of
+from .launch import check_cuda, counted, raise_on_error, stream_of
 
 W = 64
 N = W * W
@@ -115,7 +115,7 @@ def stats(okey3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return out
 
 
-stats.launches = 0  # type: ignore[attr-defined]
+counted(stats)
 
 
 def stats_select_plain(okey: torch.Tensor, contrib: torch.Tensor
@@ -158,4 +158,4 @@ def stats_select(okey: torch.Tensor, contrib: torch.Tensor) -> torch.Tensor:
     return keymax
 
 
-stats_select.launches = 0  # type: ignore[attr-defined]
+counted(stats_select)

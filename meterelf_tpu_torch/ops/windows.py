@@ -32,7 +32,7 @@ import torch
 
 from .. import _build
 from .color import bgr_planes_to_hls, unpack_planes
-from .launch import check_cuda, raise_on_error, stream_of
+from .launch import check_cuda, counted, raise_on_error, stream_of
 from .morphology import close3
 
 WIN = 64
@@ -136,4 +136,4 @@ def windows(packed: torch.Tensor, mx: torch.Tensor, my: torch.Tensor,
     return bits
 
 
-windows.launches = 0  # type: ignore[attr-defined]
+counted(windows)

@@ -57,16 +57,35 @@ port.
 (ops/jpeg_tail.py: K10, or the plain IDCT and K11 on the block layout)
 and the fallback slots in front of the same decode.
 
+The step replays CUDA graphs (pipeline/graphs.py) where it can see that
+capture is safe: a CUDA device, the plane layout (K10), a load mask
+given, and the decoder on the quad branch with the fused stats (either
+frontend) at the default caps, which launch only the port's kernels and
+glue with no host sync. There K10 is one graph, the step's, and the
+decode from its crops to K13's buffer another, the decoder's
+(``MeterDecoder.graph_crops``), each captured once a step shape and
+input placement and replayed every batch after; the fallback slots are
+written between the two replays, eagerly. The result is copied out of
+the graph's memory into a fresh buffer, so that no result aliases graph
+memory. Everything else runs eagerly: the CPU, the block layout, the
+general and scorer-only branches, the quad branch's other stats, the
+rescue under RESCUE_CAPS and ``MeterDecoder.decode`` on the caller's own
+crops.
+
 Each stage of the step and of ``_decode_batch``, and the result's copy
 and wait (``to_host_later``), runs in one flat span of profiling.py
-(``meterelf.step.backhalf``, ``meterelf.decode.*``, ``meterelf.result.*``):
-a profiler range under an active torch.profiler, a shared no-op
-otherwise.
+(``meterelf.step.backhalf``, ``meterelf.decode.*``, ``meterelf.result.*``;
+on the graphs' path ``meterelf.step.backhalf`` holds the input placement
+and the slot choice, and ``meterelf.step.graph`` the two replays, the
+slots' scatter and the result's copy out of the graph): a profiler range
+under an active torch.profiler, a shared no-op otherwise.
 """
 from __future__ import annotations
 
+import functools
 import os
-from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -82,9 +101,10 @@ from ..ops.frontend import (frontend, frontend_ok, frontend_windows, locate,
                             score_constants)
 from ..ops.jpeg_tail import backhalf_blocks, backhalf_planes
 from ..ops.jpegdec import CoefWindow, coef_window
-from ..ops.result import result_pack
+from ..ops.result import copied, result_pack
 from ..ops.stats import stats
 from ..ops.windows import windows
+from . import graphs
 
 W = 64
 FRONTENDS = ("split", "merged")
@@ -182,6 +202,8 @@ class MeterDecoder:
             static_crop_hw=(h, w),
             static_bbox=_stats_bbox(np.asarray(host.mask_full)),
         )
+        # decode graphs (graph_crops), by id of the crops buffer they read
+        self._graphs: Dict[int, graphs.Graph] = {}
 
     def _packed(self, crops: Any) -> torch.Tensor:
         x = upload(crops, self.device)
@@ -202,11 +224,35 @@ class MeterDecoder:
     def decode(self, crops: Any, load_ok: Any = None,
                caps: Optional[Sequence[int]] = None) -> BatchResult:
         """One batch under the given CCL caps (default caps when None),
-        as device tensors."""
+        as device tensors; at the default caps on buffers handed to
+        ``graph_crops``, a replay of their decode graph."""
+        g = self._graphs.get(id(crops))
+        if (g is not None and caps is None and g.args[0] is crops
+                and g.args[1] is load_ok):
+            return BatchResult(*copied(g.replay()))
+        return self._decode(crops, load_ok, caps)
+
+    def _decode(self, crops: Any, load_ok: Any,
+                caps: Optional[Sequence[int]]) -> BatchResult:
         packed = self._packed(crops)
         return _decode_batch(self, packed, self._load_ok(load_ok,
                                                          packed.shape[0]),
                              caps=caps, **self.static_kwargs)
+
+    def graph_crops(self, crops: torch.Tensor, load_ok: torch.Tensor
+                    ) -> None:
+        """Have each later ``decode(crops, load_ok)`` at the default caps
+        replay one CUDA graph of that decode (pipeline/graphs.Graph,
+        captured at the first such call) and return a fresh copy of its
+        result, which no later replay overwrites. ``crops`` [B, h, w] i32
+        and ``load_ok`` [B] bool lie on the decoder's CUDA device, and the
+        caller rewrites them in place between calls: the coefficient
+        step's back-half graph's output and load mask
+        (make_coef_decode_fn)."""
+        if id(crops) not in self._graphs:
+            self._graphs[id(crops)] = graphs.Graph(
+                self.device, functools.partial(self._decode, caps=None),
+                (crops, load_ok))
 
     def __call__(self, crops: Any, load_ok: Any = None) -> BatchResult:
         return self.decode(crops, load_ok)
@@ -253,10 +299,8 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
     D = len(dec.geom)
     pa = dec.param_arrays
     th, tw = pa.template_u8.shape
-    use_frontend = (frontend_ok(*static_crop_hw, th, tw)
-                    and static_win_origin is not None
-                    and len(static_win_origin) == D)
-    use_quad = use_frontend and D == 4 and static_centers is not None
+    use_frontend, use_quad = _gates(dec, static_win_origin, static_centers,
+                                    static_crop_hw)
     fused = use_quad and dec.quad_stats == "fused"
 
     # one flat span a stage (profiling.py)
@@ -304,6 +348,18 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
             positions, readable, value))
 
 
+def _gates(dec: MeterDecoder, static_win_origin: Any, static_centers: Any,
+           static_crop_hw: Tuple[int, int], **_: Any) -> Tuple[bool, bool]:
+    """(use_frontend, use_quad): the JAX graph's branch gates on the
+    decoder's static arguments (module docstring)."""
+    th, tw = dec.param_arrays.template_u8.shape
+    D = len(dec.geom)
+    use_frontend = (frontend_ok(*static_crop_hw, th, tw)
+                    and static_win_origin is not None
+                    and len(static_win_origin) == D)
+    return use_frontend, use_frontend and D == 4 and static_centers is not None
+
+
 def _stats_bbox(mask_full: np.ndarray, sb: int = 48
                 ) -> Optional[StatsBox]:
     """decode.py _stats_bbox: the static per-dial SB x SB box holding every
@@ -341,7 +397,16 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
     ``pa`` is accepted for the JAX package's signature; the decoder's own
     device arrays are used. ``win`` is the CoefWindow the feed must
     match, ``pad_hw`` the crop shape (``dec.feed_pad_hw``) at which the
-    back-half writes the crops and the fallback slots are staged."""
+    back-half writes the crops and the fallback slots are staged.
+
+    On a CUDA device, on the plane layout with a load mask, and while the
+    decoder takes the quad branch with the fused stats, the step replays
+    its back-half graph for the inputs' shape and placement, then the
+    decoder's graph of the decode of that graph's crops (pipeline/graphs.py,
+    each captured on first sight), writing the kept fallback slots between
+    the two replays; it returns a fresh copy of the result, which no later
+    replay overwrites. Otherwise every stage runs eagerly, as the module
+    docstring says."""
     rect = dec.params.meter_rect
     win = coef_window(rect, frame_wh[0], frame_wh[1])
     pad_hw = dec.feed_pad_hw
@@ -351,36 +416,78 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
         raise ValueError(f"ambiguous coefficient layouts for window {win}")
     dev = dec.device
 
+    def planes(cy: torch.Tensor) -> bool:
+        """True on the plane layout, False on the block layout."""
+        rows, cols = cy.shape[1:]
+        if cy.dtype == torch.int8:
+            rows = rows * 2 // 3  # compact wire: 3/2 stored rows a row
+        if (rows, cols) == plane_shape:
+            return True
+        if tuple(cy.shape[1:]) == block_shape:
+            return False
+        raise ValueError(f"coefficients of shape {tuple(cy.shape)} fit "
+                         f"neither layout of window {win}")
+
+    def tail(cy: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+             qt: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+        return backhalf_planes(cy, cb, cr, qt, win, pad_hw)
+
+    step_graphs = (graphs.StepGraphs(dev, tail) if dev.type == "cuda"
+                   else None)
+
     def step(pa: Any, cy: Any, cb: Any, cr: Any, qt: Any, ok: Any,
              fb_packed: Any, fb_idx: Any) -> BatchResult:
         del pa
+        g = None
         with span("meterelf.step.backhalf"):
-            cy, cb, cr, qt = (upload(a, dev) for a in (cy, cb, cr, qt))
-            rows, cols = cy.shape[1:]
-            if cy.dtype == torch.int8:
-                rows = rows * 2 // 3  # compact wire: 3/2 stored rows a row
-            if (rows, cols) == plane_shape:
-                packed = backhalf_planes(cy, cb, cr, qt, win, pad_hw)
-            elif tuple(cy.shape[1:]) == block_shape:
-                packed = backhalf_blocks(cy, cb, cr, qt, win, pad_hw)
+            cy = torch.as_tensor(cy)
+            B = cy.shape[0]
+            on_planes = planes(cy)
+            slots = _slots(fb_idx, B)
+            if (step_graphs is not None and on_planes and B
+                    and ok is not None and dec.quad_stats == "fused"
+                    and _gates(dec, **dec.static_kwargs)[1]):
+                g = step_graphs.place((cy, cb, cr, qt, ok))
             else:
-                raise ValueError(f"coefficients of shape {tuple(cy.shape)} "
-                                 f"fit neither layout of window {win}")
-            # the slot choice runs on the host (the feed's fb_idx is
-            # numpy): no device sync, and unused slots never cross to the
-            # device
-            B = packed.shape[0]
-            idx = torch.as_tensor(fb_idx).cpu().to(torch.int64)
-            idx = torch.where(idx < 0, idx + B, idx)
-            keep = (idx >= 0) & (idx < B)
-            if bool(keep.any()):
-                count("fallback_rows", int(keep.sum()))
-                fb = torch.as_tensor(fb_packed)
-                rows = fb[keep.to(fb.device)].to(torch.int32)
-                packed[upload(idx[keep], dev)] = upload(rows, dev)
-        return dec.decode(packed, ok)
+                cy, cb, cr, qt = (upload(a, dev) for a in (cy, cb, cr, qt))
+                packed = (backhalf_planes if on_planes else backhalf_blocks)(
+                    cy, cb, cr, qt, win, pad_hw)
+                if slots is not None:
+                    _scatter(packed, fb_packed, *slots)
+        if g is None:
+            return dec.decode(packed, ok)
+        with span("meterelf.step.graph"):
+            crops, ok = g.replay(), g.args[4]
+            if slots is not None:
+                _scatter(crops, fb_packed, *slots)
+            dec.graph_crops(crops, ok)
+            return dec.decode(crops, ok)
 
     return step, win, pad_hw
+
+
+def _slots(fb_idx: Any, B: int
+           ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The fallback slots that land in a batch of B rows: (row index,
+    kept) on the host, or None when no slot is kept. The choice runs on
+    the host (the feed's fb_idx is numpy): no device sync, and unused
+    slots never cross to the device."""
+    idx = torch.as_tensor(fb_idx).cpu().to(torch.int64)
+    idx = torch.where(idx < 0, idx + B, idx)
+    keep = (idx >= 0) & (idx < B)
+    if not bool(keep.any()):
+        return None
+    count("fallback_rows", int(keep.sum()))
+    return idx, keep
+
+
+def _scatter(packed: torch.Tensor, fb_packed: Any, idx: torch.Tensor,
+             keep: torch.Tensor) -> None:
+    """Write the kept fallback rows of ``fb_packed`` over their rows of
+    the crops ``packed``."""
+    fb = torch.as_tensor(fb_packed)
+    rows = fb[keep.to(fb.device)].to(torch.int32)
+    packed[upload(idx[keep], packed.device)] = upload(rows, packed.device)
 
 
 def upload(a: Any, dev: torch.device) -> torch.Tensor:

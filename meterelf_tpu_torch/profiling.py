@@ -24,7 +24,8 @@ The spans the port opens, all flat within one batch of the step:
 
 | Span | Where |
 | --- | --- |
-| ``meterelf.step.backhalf`` | the coefficient step's uploads, JPEG back-half and fallback scatter (pipeline/decode.make_coef_decode_fn) |
+| ``meterelf.step.backhalf`` | the coefficient step's uploads, JPEG back-half and fallback scatter (pipeline/decode.make_coef_decode_fn); on its graphs' path the input placement (pipeline/graphs.StepGraphs) and the slot choice |
+| ``meterelf.step.graph`` | the graphs' path: the back-half and decode graphs' replays, the fallback scatter between them and the result's copy out of the graph |
 | ``meterelf.decode.frontend`` | K1 or K5, or the scorer-only branch's lightness, score and locate |
 | ``meterelf.decode.windows`` | K2 and its reshape |
 | ``meterelf.decode.ccl`` | K3, or K6 (ops/ccl.analyze_batch) |
@@ -38,8 +39,12 @@ The spans the port opens, all flat within one batch of the step:
 | ``meterelf.api.host_decode``, ``meterelf.api.decode_numpy`` | get_meter_values's host decode and decode |
 
 Counters: ``fallback_rows`` (rows the coefficient step overwrote with a
-fallback slot) and ``rescued_rows`` (non-converged rows that
-``MeterDecoder.rescue_numpy`` decoded again under the rescue caps).
+fallback slot), ``rescued_rows`` (non-converged rows that
+``MeterDecoder.rescue_numpy`` decoded again under the rescue caps),
+``step_graph_captures`` and ``step_graph_replays`` (CUDA graphs of the
+coefficient step captured and replayed, pipeline/graphs.py) and
+``step_graph_staged`` (steps whose device inputs were copied into a
+graph's staging buffers).
 """
 from __future__ import annotations
 
