@@ -51,24 +51,21 @@ Runs from the root of a checkout, with nothing built beforehand:
    the coefficient step: K1, K2, K6, no K3/K4), the scorer-only branch
    (flagship crops with static_win_origin=None: K8, K2, K6) and the
    fallback batch (every frame loaded, the 4:4:4 rows in the fallback
-   slots), the quad branch's decode variants (METERELF_FRONTEND=merged
-   with METERELF_QUAD_STATS=hist_pallas through decode_numpy and the
-   coefficient step: K5, K6, K7; merged with fused: K5, K3, K4) and the
-   v1 scorer (match.match_scores_v1: K9): readings within 0.1 of the
-   rendered positions, the first 16 rows equal to the CPU (plain
-   versions), the variants equal to the default decode, the kernels of
-   each path launched as the path requires (K12 once a decode on every
-   path); the coefficient step's CUDA graph counters, a second flagship
-   step replaying its two graphs (no capture), equal to the first and
-   with K12 and K13 once; then a dense-noise window
-   through the CCL kernel and through the hist_pallas variant's analysis
-   (K6, K7), non-converged under the default caps and converged under the
-   rescue caps, equal to the plain version both times;
-5. prints the throughput of the paths (the four quad-branch variants
-   timed in turns, split/merged x fused/hist_pallas), the host feed time
-   with fallback frames, and the device time of a steady batch of the
-   quad, coefficient, general, scorer-only and merged + hist_pallas paths
-   by kernel (torch.profiler) with the device busy share;
+   slots), and the v1 scorer (match.match_scores_v1: K9): readings
+   within 0.1 of the rendered positions, the first 16 rows equal to the
+   CPU (plain versions), the kernels of each path launched as the path
+   requires (K12 once a decode on every path; K5, K7 and K9 by no
+   decode); the coefficient step's CUDA graph counters, a second
+   flagship step replaying its two graphs (no capture), equal to the
+   first and with K12 and K13 once; then a dense-noise window through
+   the CCL kernel and through ccl.analyze_batch with finalize's
+   hist_pallas selection (K6, K7), non-converged under the default caps
+   and converged under the rescue caps, equal to the plain version both
+   times;
+5. prints the throughput of the paths, the host feed time with fallback
+   frames, and the device time of a steady batch of the quad,
+   coefficient, general and scorer-only paths by kernel (torch.profiler)
+   with the device busy share;
 6. runs the CLI (``python3 -m meterelf_tpu_torch``) on the card over the
    ``write_params`` directories of the flagship and ALT: 256 distinct
    flagship and 64 ALT JPEG files and one of each error kind
@@ -105,9 +102,9 @@ Runs from the root of a checkout, with nothing built beforehand:
    (METERELF_DISTRIBUTED=1), its lines equal to METERELF_DEVICE=cpu
    --mesh 1's;
 9. prints a JSON line of per-kernel results (launches from the
-   coefficient path; K6's from the general branch, K8's from the
-   scorer-only branch, K5's and K7's from the merged + hist_pallas crop
-   decode, K9's from match_scores_v1; "mesh_launches" from the mesh
+   coefficient path, K5's and K7's among them, 0: no decode launches
+   them; K6's from the general branch, K8's from the scorer-only branch,
+   K9's from match_scores_v1; "mesh_launches" from the mesh
    phase's decode and step), the card, then, only if every phase
    passed, {"ok": true, "device": {...}} as the last line.
 
@@ -808,14 +805,6 @@ def main() -> int:
     # the scorer-only branch: the flagship with static_win_origin=None
     sc_dec = MeterDecoder(cam.make_params(), device=dev)
     sc_dec.static_kwargs["static_win_origin"] = None
-    # the quad branch's decode variants (METERELF_FRONTEND x
-    # METERELF_QUAD_STATS), the default decoder being split + fused
-    variants = {(fe, qs): MeterDecoder(cam.make_params(), device=dev,
-                                       frontend=fe, quad_stats=qs)
-                for fe in ("split", "merged")
-                for qs in ("fused", "hist_pallas")
-                if (fe, qs) != ("split", "fused")}
-    variants[("split", "fused")] = dec
 
     def phase(name, fn) -> None:
         t = time.perf_counter()
@@ -1313,7 +1302,7 @@ def main() -> int:
             ((K2_FP32_OPS_PX * px, FP32_OPS_PER_S),)))
 
     def k7() -> None:
-        # K6's okey of the flagship windows (the hist_pallas variant's
+        # K6's okey of the flagship windows (finalize's hist_pallas
         # input), contributions outside the kernel as the JAX graph makes
         bits = state["bits"]
         okey, _ = ccl_ops.propagate(bits)
@@ -1395,9 +1384,10 @@ def main() -> int:
     coef_kernels = crop_kernels + (jpeg_tail.backhalf_planes,
                                    jpeg_tail.upsample_color_pack)
     general_kernels = (ccl_ops.propagate, match.match_scores)
-    variant_kernels = (frontend.frontend_windows, stats.stats_select,
-                       match.match_corr)
-    all_kernels = coef_kernels + general_kernels + variant_kernels
+    # K5, K7, K9: kernels that no decode launches
+    no_decode_kernels = (frontend.frontend_windows, stats.stats_select,
+                         match.match_corr)
+    all_kernels = coef_kernels + general_kernels + no_decode_kernels
 
     def reset(fns) -> None:
         for fn in fns:
@@ -1407,8 +1397,9 @@ def main() -> int:
         return {fn.__name__: fn.launches for fn in fns}
 
     def check_readout(launches: dict, label: str) -> None:
-        """K12 and K13 read each decode once: a decode launches K3 (fused)
-        or K6 (every other branch) once, a rescue decodes again."""
+        """K12 and K13 read each decode once: a decode launches K3 (the
+        quad branch) or K6 (every other branch) once, a rescue decodes
+        again."""
         n = launches["ccl"] + launches["propagate"]
         check(n > 0 and launches["readout"] == n
               and launches["result_pack"] == n,
@@ -1485,8 +1476,11 @@ def main() -> int:
         check(all(n > 0 for n in launches.values()),
               f"a kernel of the coefficient path was not launched: "
               f"{launches}")
-        check(not any(counts(general_kernels + variant_kernels).values()),
-              "the default quad branch launched K5-K9")
+        others = counts(general_kernels + no_decode_kernels)
+        check(not any(others.values()),
+              f"the quad branch launched K5-K9: {others}")
+        for name in ("frontend_windows", "stats_select"):
+            results[name]["launches"] = others[name]
         # the step's CUDA graphs (pipeline/graphs.py): a second flagship
         # step of one shape replays its pair and captures nothing
         g0 = program_counts()
@@ -1627,70 +1621,6 @@ def main() -> int:
         say(f"fallback batch: every frame loaded, slots {sorted(FB_444)}, "
             f"first {N_CPU_CHECK} rows (all fallback rows) equal the CPU")
 
-    def variant_run() -> None:
-        """The quad branch under the decode knobs: merged + hist_pallas
-        (K5, K6, K7) through decode_numpy and the coefficient step, merged
-        + fused (K5, K3, K4) through decode_numpy; every field equal to
-        the default decode's."""
-        mh, mf = variants[("merged", "hist_pallas")], \
-            variants[("merged", "fused")]
-        base = dec.decode_numpy(crops)
-        for d in (mh, mf):
-            d.decode_numpy(crops[:8])                # warm-up
-        torch.cuda.synchronize()
-        cpu = {}
-        for (fe, qs), d, want in (
-                (("merged", "hist_pallas"), mh,
-                 {"frontend_windows": 1, "propagate": 1, "stats_select": 1,
-                  "readout": 1, "result_pack": 1}),
-                (("merged", "fused"), mf,
-                 {"frontend_windows": 1, "ccl": 1, "stats": 1,
-                  "readout": 1, "result_pack": 1})):
-            reset(all_kernels)
-            t = time.perf_counter()
-            res = d.decode_numpy(crops)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            launches = counts(all_kernels)
-            if qs == "hist_pallas":
-                for name in ("frontend_windows", "stats_select"):
-                    results[name]["launches"] = launches[name]
-            say(f"variant {fe} + {qs}, crops: {B_MAIN} flagship crops in "
-                f"{wall:.3f} s; launches {launches}")
-            check(launches == {k: want.get(k, 0) for k in launches},
-                  f"variant {fe} + {qs} launches {launches}, want {want}")
-            check_readings(f"variant {fe} + {qs}", res, true_pos)
-            cpu[qs] = MeterDecoder(cam.make_params(), device="cpu",
-                                   frontend=fe, quad_stats=qs)
-            compare_results(rows(res, N_CPU_CHECK),
-                            cpu[qs].decode_numpy(crops[:N_CPU_CHECK]),
-                            f"variant {fe} + {qs} vs CPU")
-            compare_results(res, base, f"variant {fe} + {qs} vs default")
-        vstep, _, _ = make_coef_decode_fn(mh, FRAME_WH)
-        feed = state["feed"]
-        vstep(None, *cut(feed, 8))                  # warm-up
-        torch.cuda.synchronize()
-        reset(all_kernels)
-        res = to_numpy(vstep(None, *feed))
-        launches = counts(all_kernels)
-        say(f"variant merged + hist_pallas, coefficient step: {B_MAIN} "
-            f"flagship JPEG feeds; launches {launches}")
-        check(launches == {k: int(k in ("frontend_windows", "propagate",
-                                        "stats_select", "backhalf_planes",
-                                        "readout", "result_pack"))
-                           for k in launches},
-              f"variant coefficient step launches {launches}")
-        check_readings("variant merged + hist_pallas coef", res,
-                       true_pos[np.arange(B_MAIN) % N_DISTINCT])
-        cpu_step, _, _ = make_coef_decode_fn(cpu["hist_pallas"], FRAME_WH)
-        compare_results(rows(res, N_CPU_CHECK),
-                        to_numpy(cpu_step(None, *cut(feed, N_CPU_CHECK))),
-                        "variant coef vs CPU")
-        compare_results(res, to_numpy(step(None, *feed)),
-                        "variant coef vs default coef")
-        say(f"variants: first {N_CPU_CHECK} rows equal the CPU, every row "
-            "equal to the default decode (crops and step)")
-
     def v1_run() -> None:
         """The v1 scorer through its entry point, match_scores_v1 (the JAX
         package's tests and experiments call pallas_match's): K9."""
@@ -1741,17 +1671,6 @@ def main() -> int:
         say(f"scorer-only branch decode (flagship, device-resident crops, "
             f"B={B_MAIN}): {ms:.3f} ms/batch = {B_MAIN / ms * 1e3:.0f} "
             "images/s")
-        # the quad branch's variants in turns (ABCD DCBA), same crops
-        order = [("split", "fused"), ("merged", "fused"),
-                 ("split", "hist_pallas"), ("merged", "hist_pallas")]
-        ms = {k: [] for k in order}
-        for k in order + order[::-1]:
-            ms[k].append(cuda_ms(lambda: variants[k](packed), 10))
-        for k in order:
-            m = float(np.mean(ms[k]))
-            say(f"quad variant {k[0]} + {k[1]} (device-resident crops, "
-                f"B={B_MAIN}): {m:.3f} ms/batch = {B_MAIN / m * 1e3:.0f} "
-                f"images/s (runs {np.round(ms[k], 3).tolist()})")
 
     def rescue() -> None:
         yy, xx = np.mgrid[:64, :64]
@@ -1770,8 +1689,8 @@ def main() -> int:
                   f"rescue window: converged {bool(cv_g[0])} under {caps}")
         say("rescue window: non-converged under default caps, converged "
             "under RESCUE_CAPS, kernel == plain both times")
-        # the same window through the hist_pallas variant's analysis (K6,
-        # then finalize with K7)
+        # the same window through K6, then finalize's hist_pallas
+        # selection (K7)
         n7 = stats.stats_select.launches
         for caps, want in ((None, False),
                            (components.RESCUE_CAPS, True)):
@@ -1784,8 +1703,8 @@ def main() -> int:
                   f"rescue window, hist_pallas: converged under {caps}")
         check(stats.stats_select.launches == n7 + 2,
               "rescue window, hist_pallas: K7 not launched")
-        say("rescue window through the hist_pallas variant (K6, K7): the "
-            "same, equal to the CPU both times")
+        say("rescue window through K6 and finalize's hist_pallas (K7): "
+            "the same, equal to the CPU both times")
 
     def profile() -> None:
         profile_ms("crop decode", lambda: dec(packed))
@@ -1793,8 +1712,6 @@ def main() -> int:
         profile_ms("coefficient step", lambda: step(None, *fd, *fb))
         profile_ms("general branch decode", lambda: five_dec(five_packed))
         profile_ms("scorer-only branch decode", lambda: sc_dec(packed))
-        profile_ms("variant merged + hist_pallas decode",
-                   lambda: variants[("merged", "hist_pallas")](packed))
 
     def cli_run() -> None:
         """The port's CLI on the card: the flagship (256 JPEG files and
@@ -2648,7 +2565,6 @@ def main() -> int:
         phase("general branch", general_run)
         phase("scorer-only branch", scorer_run)
         phase("fallback slots", fallback_run)
-        phase("decode variants", variant_run)
         phase("v1 scorer", v1_run)
         phase("throughput", throughput)
         phase("rescue", rescue)

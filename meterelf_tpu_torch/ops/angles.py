@@ -23,7 +23,7 @@ card as on the CPU: the DEBUG output prints them in full.
 ``readout`` is the decode's angle stage: on the CPU the plain graph
 (``readout_plain``); on the card K12 (csrc/angles.cu), the whole stage in
 one launch, bit-equal to the plain graph run on the card: the needle
-gathered from okey3 and keymax (quad fused branch) or from the needle
+gathered from okey3 and keymax (quad branch) or from the needle
 region (the other branches), the momentum, the tip filter and trim, the
 weighted mean in ``tree_sum``'s order, and the value for 4 dials.
 """

@@ -17,8 +17,7 @@ compile-time flag for the key) runs one window per CTA and writes the key
 once.
 
 ``analyze_batch`` is components.analyze_batch on this branch: K6, then
-components.finalize (the quad branch under METERELF_QUAD_STATS != fused
-runs it too), in the spans ``meterelf.decode.ccl`` and
+components.finalize, in the spans ``meterelf.decode.ccl`` and
 ``meterelf.decode.stats``.
 """
 from __future__ import annotations
@@ -95,10 +94,7 @@ def analyze_batch(bits: torch.Tensor,
                   ) -> components.ComponentResult:
     """components.analyze_batch(impl="pallas") on K2's window bits [K, 64,
     64]: K6, then the largest-component selection under ``stats`` and the
-    needle region (components.finalize). On the quad branch under
-    METERELF_QUAD_STATS != fused the JAX graph runs
-    propagate_quads(pack_closed=False), which is K6's function, and then
-    the same _finalize."""
+    needle region (components.finalize)."""
     with span("meterelf.decode.ccl"):
         okey, conv = propagate(bits, caps)
     with span("meterelf.decode.stats"):

@@ -21,21 +21,20 @@ the same:
 of K6 (ops/ccl.py).
 
 ``finalize`` ports ``_finalize`` (components.py:408-499), the stage after
-K6 on the general-geometry branch and on the quad branch under
-METERELF_QUAD_STATS != fused: the largest top-level component per window
-and the reference's needle region. ``stats`` names the selection:
+K6 on the general-geometry and scorer-only branches: the largest
+top-level component per window and the reference's needle region.
+``stats`` names the selection:
 
-- "sort" and "hist" (the JAX package's ``_stats_sort`` and
-  ``_stats_hist``, :553-595 and :502-550) are two XLA formulations of one
-  function, the selection that K7 computes: the same key area2*4096 +
-  owner over owners with a boundary pixel and the same tie-break
-  (tests/test_ops.py holds hist_pallas equal to sort). Both run the
-  port's sort here, in torch, over the static per-dial stats box when
-  there is one. JAX sorts the keys as u16 when they fit; the port sorts
-  the same non-negative keys as i32, which orders them alike.
+- "sort" (the decode's; the JAX package's ``_stats_sort``, :553-595)
+  selects the key area2*4096 + owner over owners with a boundary pixel,
+  with K7's tie-break (tests/test_ops.py holds hist_pallas equal to
+  sort), by the port's sort, in torch, over the static per-dial stats
+  box when there is one. JAX sorts the keys as u16 when they fit; the
+  port sorts the same non-negative keys as i32, which orders them alike.
 - "hist_pallas" runs K7 (ops/stats.py ``stats_select``, the port of
   pallas_stats.stats_select) over the whole window, with no box remap,
-  as :422-444 does.
+  as :422-444 does. No decode takes it: it stays as the candidate
+  finalize of the general branch, to be measured there.
 
 ``cell_contrib``, the marching-squares cell contributions, lives in
 ops/stats.py beside K4 and K7, which read it.
@@ -233,12 +232,12 @@ def finalize(okey: torch.Tensor, masked: torch.Tensor, closed: torch.Tensor,
              stats: str = "sort") -> ComponentResult:
     """okey [K, 64, 64] i32 (owner*4 + masked*2 + boundary), masked and
     closed [K, 64, 64] bool, converged [K] -> ComponentResult
-    (components._finalize). ``stats`` is "sort", "hist" or "hist_pallas"
-    (module docstring). Under sort and hist, with ``static_bbox`` ((ox,
-    oy) per dial, SB) the stats cover each dial's SB x SB box (K a
-    multiple of the dial count) and labels remap to box-local indices, a
-    monotone map that keeps the selection and its tie-break."""
-    if stats not in ("sort", "hist", "hist_pallas"):
+    (components._finalize). ``stats`` is "sort" or "hist_pallas" (module
+    docstring). Under sort, with ``static_bbox`` ((ox, oy) per dial, SB)
+    the stats cover each dial's SB x SB box (K a multiple of the dial
+    count) and labels remap to box-local indices, a monotone map that
+    keeps the selection and its tie-break."""
+    if stats not in ("sort", "hist_pallas"):
         raise ValueError(f"finalize: unknown stats {stats!r}")
     K = okey.shape[0]
     dev = okey.device

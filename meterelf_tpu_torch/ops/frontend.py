@@ -25,7 +25,9 @@ the JAX decode's METERELF_FRONTEND=merged variant of the quad branch: K1
 and then, in the same CUDA block, K2's 4 dial windows at the located
 offset (csrc/frontend.cu with csrc/window_bits.cuh, K2's body). Its plain
 version is ``frontend_plain`` followed by ``windows.windows_plain``, the
-same function; it takes exactly 4 dials, as the TPU kernel does.
+same function; it takes exactly 4 dials, as the TPU kernel does. No
+decode of the port calls it (the quad branch runs K1, then K2): it is a
+kernel with its plain version and its tests, as K9 in ops/match.py.
 """
 from __future__ import annotations
 

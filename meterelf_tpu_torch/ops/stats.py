@@ -15,13 +15,15 @@ owners across a warp, and writes has_any straight into the bool
 output.
 
 K7 ``stats_select`` ports pallas_stats.stats_select, which the JAX
-decode runs under METERELF_QUAD_STATS=hist_pallas (components._finalize):
-okey (owner*4 + masked*2 + boundary, K6's key) and contrib, the cell
-contributions computed outside the kernel as the JAX graph does, in; per
-owner the boundary count and area2 = sum (contrib & 3), both binned under
-each pixel's own owner (owner 4096 drops out); keymax as K4's. The CUDA
-kernel is K4's with a template flag (csrc/stats.cu), so the two
-histogram bodies cannot drift.
+decode runs under METERELF_QUAD_STATS=hist_pallas (components._finalize).
+No decode of the port reaches it: it is a kernel with its plain version
+and its tests, called only through ``components.finalize(stats=
+"hist_pallas")``, as K9 in ops/match.py. In: okey (owner*4 + masked*2 +
+boundary, K6's key) and contrib, the cell contributions computed outside
+the kernel as the JAX graph does; per owner the boundary count and
+area2 = sum (contrib & 3), both binned under each pixel's own owner
+(owner 4096 drops out); keymax as K4's. The CUDA kernel is K4's with a
+template flag (csrc/stats.cu), so the two histogram bodies cannot drift.
 """
 from __future__ import annotations
 

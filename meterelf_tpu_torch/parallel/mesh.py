@@ -218,13 +218,13 @@ class _DataParallel:
 def data_parallel_decoder(decoder: MeterDecoder, mesh: DeviceMesh,
                           axis: str = "data") -> _DataParallel:
     """A function decoding batches data-parallel over ``mesh``: one
-    MeterDecoder replica a local device (the decoder's params, ``exact``,
-    ``frontend``, ``quad_stats`` and static arguments, its parameter
-    arrays put on each device by params.to_device; the decoder itself
-    where it is on that device), each shard dispatched on its own device
-    without waiting for the card, and the results gathered in row order
-    into one BatchResult on the mesh's first device (so a single event
-    there orders the pull to the host after every shard).
+    MeterDecoder replica a local device (the decoder's params, ``exact``
+    and static arguments, its parameter arrays put on each device by
+    params.to_device; the decoder itself where it is on that device),
+    each shard dispatched on its own device without waiting for the
+    card, and the results gathered in row order into one BatchResult on
+    the mesh's first device (so a single event there orders the pull to
+    the host after every shard).
 
     It takes this process's LOCAL slice of the batch as numpy or a
     tensor, or a ShardedBatch from ``shard_host_batch``; load_ok likewise
@@ -391,9 +391,7 @@ def _replicas(decoder: MeterDecoder,
     out = []
     for d in mesh.devices:
         if d not in by_dev:
-            r = MeterDecoder(decoder.params, exact=decoder.exact, device=d,
-                             frontend=decoder.frontend,
-                             quad_stats=decoder.quad_stats)
+            r = MeterDecoder(decoder.params, exact=decoder.exact, device=d)
             r.static_kwargs = dict(decoder.static_kwargs)
             by_dev[d] = r
         out.append(by_dev[d])

@@ -29,29 +29,16 @@ views of one buffer (K13 result_pack, ops/result.py), so that
 every kernel stage launches its CUDA kernel; on the CPU the same code
 runs each kernel's plain torch version.
 
-The quad branch takes the JAX decode's two variant knobs, read when the
-decoder is built (``MeterDecoder(frontend=, quad_stats=)``, else the
-environment, with the JAX package's names and defaults):
-
-- ``METERELF_FRONTEND``: ``split`` (default: K1, then K2) or ``merged``
-  (K5 frontend_windows, ops/frontend.py: both in one CUDA block);
-- ``METERELF_QUAD_STATS``: ``fused`` (default: K3 with the closed bit,
-  K4, angles from okey3) or ``hist_pallas``, ``sort``, ``hist`` (K6, the
-  JAX graph's propagate_quads(pack_closed=False), then
-  components.finalize with K7 for hist_pallas or the torch sort for sort
-  and hist, two XLA formulations of K7's selection; angles from the
-  needle region). A ``_interpret`` suffix, the JAX package's switch to
-  Pallas interpret mode, is accepted and means nothing here.
-
 ``MeterDecoder(exact=False)`` is the JAX package's fast mode: the
 geometry of the angle statistics (``FAST_F32``) goes to the device as
 float32, and ops/angles.py works in that dtype where the JAX package
 does, summing in float64 as before.
 
-The other branches read neither knob, as in JAX. ``METERELF_STATS_SLICED``,
-``METERELF_CCL_DEQUAD`` and ``METERELF_STATS_GW`` change only the TPU
-kernels' layouts and give the same results: they select nothing in the
-port.
+The JAX package's decode knobs (``METERELF_FRONTEND``,
+``METERELF_QUAD_STATS``, ``METERELF_CCL_SKIPREV``, ``_CCL_GLUE``,
+``_CCL_GQ``, ``_STATS_GW``, ``_STATS_SLICED``, ``_CCL_DEQUAD``,
+``_FE_SHEAR``, ``_FE_XG`` and ``_CCL_RIDMM``) change only its TPU program
+and give the same readings, so the port reads none of them.
 
 ``make_coef_decode_fn`` puts the JPEG back-half of the coefficient feed
 (ops/jpeg_tail.py: K10, or the plain IDCT and K11 on the block layout)
@@ -59,18 +46,16 @@ and the fallback slots in front of the same decode.
 
 The step replays CUDA graphs (pipeline/graphs.py) where it can see that
 capture is safe: a CUDA device, the plane layout (K10), a load mask
-given, and the decoder on the quad branch with the fused stats (either
-frontend) at the default caps, which launch only the port's kernels and
-glue with no host sync. There K10 is one graph, the step's, and the
-decode from its crops to K13's buffer another, the decoder's
-(``MeterDecoder.graph_crops``), each captured once a step shape and
-input placement and replayed every batch after; the fallback slots are
-written between the two replays, eagerly. The result is copied out of
-the graph's memory into a fresh buffer, so that no result aliases graph
-memory. Everything else runs eagerly: the CPU, the block layout, the
-general and scorer-only branches, the quad branch's other stats, the
-rescue under RESCUE_CAPS and ``MeterDecoder.decode`` on the caller's own
-crops.
+given, and the decoder on the quad branch at the default caps, which
+launch only the port's kernels and glue with no host sync. There K10 is
+one graph, the step's, and the decode from its crops to K13's buffer
+another, the decoder's (``MeterDecoder.graph_crops``), each captured
+once a step shape and input placement and replayed every batch after;
+the fallback slots are written between the two replays, eagerly. The
+result is copied out of the graph's memory into a fresh buffer, so that
+no result aliases graph memory. Everything else runs eagerly: the CPU,
+the block layout, the general and scorer-only branches, the rescue under
+RESCUE_CAPS and ``MeterDecoder.decode`` on the caller's own crops.
 
 Each stage of the step and of ``_decode_batch``, and the result's copy
 and wait (``to_host_later``), runs in one flat span of profiling.py
@@ -83,7 +68,6 @@ under an active torch.profiler, a shared no-op otherwise.
 from __future__ import annotations
 
 import functools
-import os
 from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
                     Tuple)
 
@@ -97,8 +81,7 @@ from ..ops.angles import readout
 from ..ops.ccl import analyze_batch, ccl
 from ..ops.color import lightness_from_planes, unpack_planes
 from ..ops.components import RESCUE_CAPS, StatsBox
-from ..ops.frontend import (frontend, frontend_ok, frontend_windows, locate,
-                            score_constants)
+from ..ops.frontend import frontend, frontend_ok, locate, score_constants
 from ..ops.jpeg_tail import backhalf_blocks, backhalf_planes
 from ..ops.jpegdec import CoefWindow, coef_window
 from ..ops.result import copied, result_pack
@@ -107,23 +90,9 @@ from ..ops.windows import windows
 from . import graphs
 
 W = 64
-FRONTENDS = ("split", "merged")
-QUAD_STATS = ("fused", "hist_pallas", "sort", "hist")
 # the ParamArrays fields exact=False demotes to float32 (JAX decode.py:607)
 FAST_F32 = ("zero_turn", "disk_sx2", "disk_sy2", "ann_x", "ann_y",
             "ann_angle", "ann_sqd")
-
-
-def _variant(value: Optional[str], env: str, default: str,
-             choices: Tuple[str, ...]) -> str:
-    """A knob's value: the argument, else the environment variable, else
-    the JAX package's default; a ``_interpret`` suffix is dropped. An
-    unknown value raises."""
-    v = os.environ.get(env, default) if value is None else value
-    base = v[:-len("_interpret")] if v.endswith("_interpret") else v
-    if base not in choices:
-        raise ValueError(f"{env}={v!r}: expected one of {choices}")
-    return base
 
 
 class BatchResult(NamedTuple):
@@ -156,14 +125,7 @@ class MeterDecoder:
     """
 
     def __init__(self, params: Params, *, exact: bool = True,
-                 device: Any = "cuda", frontend: Optional[str] = None,
-                 quad_stats: Optional[str] = None) -> None:
-        # the quad branch's variants (module docstring); None reads the
-        # environment, as the JAX package does at import
-        self.frontend = _variant(frontend, "METERELF_FRONTEND", "split",
-                                 FRONTENDS)
-        self.quad_stats = _variant(quad_stats, "METERELF_QUAD_STATS",
-                                   "fused", QUAD_STATS)
+                 device: Any = "cuda") -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -293,25 +255,18 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
                   static_bbox: Optional[StatsBox],
                   caps: Optional[Sequence[int]]) -> BatchResult:
     """decode.py _decode_batch: packed [B, H, W] i32 crops -> BatchResult
-    of device tensors, on the branch the static arguments and gates pick,
-    and on the quad branch the decoder's variant (module docstring)."""
+    of device tensors, on the branch the static arguments and gates pick
+    (module docstring)."""
     B = packed.shape[0]
     D = len(dec.geom)
     pa = dec.param_arrays
     th, tw = pa.template_u8.shape
     use_frontend, use_quad = _gates(dec, static_win_origin, static_centers,
                                     static_crop_hw)
-    fused = use_quad and dec.quad_stats == "fused"
 
     # one flat span a stage (profiling.py)
-    bits = None
     with span("meterelf.decode.frontend"):
-        if use_quad and dec.frontend == "merged":
-            max_val, mx, my, bits = frontend_windows(
-                packed, pa.template_u8, dec.score_c1, dec.score_c0,
-                dec.geom, dec.disk, dec.hue_shift)
-            bits = bits.reshape(B * D, W, W)
-        elif use_frontend:
+        if use_frontend:
             max_val, mx, my = frontend(packed, pa.template_u8, dec.score_c1,
                                        dec.score_c0)
         else:
@@ -322,22 +277,20 @@ def _decode_batch(dec: MeterDecoder, packed: torch.Tensor,
                      else match.scores_matmul)
             max_val, mx, my = locate(score(lightness, pa.template_u8,
                                            dec.tmean))
-    if bits is None:
-        with span("meterelf.decode.windows"):
-            bits = windows(packed, mx, my, dec.geom, dec.disk,
-                           dec.hue_shift).reshape(B * D, W, W)
-    if fused:
+    with span("meterelf.decode.windows"):
+        bits = windows(packed, mx, my, dec.geom, dec.disk,
+                       dec.hue_shift).reshape(B * D, W, W)
+    if use_quad:
         with span("meterelf.decode.ccl"):
             okey3, conv = ccl(bits, caps)
         with span("meterelf.decode.stats"):
             keymax, has_any = stats(okey3)
     else:
         # analyze_batch opens the ccl and stats spans
-        comp = analyze_batch(bits, static_bbox, caps,
-                             dec.quad_stats if use_quad else "sort")
+        comp = analyze_batch(bits, static_bbox, caps)
         has_any, conv = comp.has_any, comp.converged
     with span("meterelf.decode.angles"):
-        src, km = ((okey3, keymax.view(B, D)) if fused
+        src, km = ((okey3, keymax.view(B, D)) if use_quad
                    else (comp.needle_region, None))
         positions, readable, value = readout(src.view(B, D, W * W), km, pa)
     with span("meterelf.decode.errors"):
@@ -400,12 +353,12 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
     back-half writes the crops and the fallback slots are staged.
 
     On a CUDA device, on the plane layout with a load mask, and while the
-    decoder takes the quad branch with the fused stats, the step replays
-    its back-half graph for the inputs' shape and placement, then the
-    decoder's graph of the decode of that graph's crops (pipeline/graphs.py,
-    each captured on first sight), writing the kept fallback slots between
-    the two replays; it returns a fresh copy of the result, which no later
-    replay overwrites. Otherwise every stage runs eagerly, as the module
+    decoder takes the quad branch, the step replays its back-half graph
+    for the inputs' shape and placement, then the decoder's graph of the
+    decode of that graph's crops (pipeline/graphs.py, each captured on
+    first sight), writing the kept fallback slots between the two
+    replays; it returns a fresh copy of the result, which no later replay
+    overwrites. Otherwise every stage runs eagerly, as the module
     docstring says."""
     rect = dec.params.meter_rect
     win = coef_window(rect, frame_wh[0], frame_wh[1])
@@ -444,8 +397,7 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
             B = cy.shape[0]
             on_planes = planes(cy)
             slots = _slots(fb_idx, B)
-            if (step_graphs is not None and on_planes and B
-                    and ok is not None and dec.quad_stats == "fused"
+            if (step_graphs is not None and on_planes and B and ok is not None
                     and _gates(dec, **dec.static_kwargs)[1]):
                 g = step_graphs.place((cy, cb, cr, qt, ok))
             else:

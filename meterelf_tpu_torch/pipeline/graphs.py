@@ -11,10 +11,10 @@ replays two:
 - the back-half graph, K10 ``backhalf_planes`` from the coefficient
   planes to the crops, owned by the step (``StepGraphs``);
 - the decode graph, ``_decode_batch`` from those crops to K13's packed
-  BatchResult buffer (K1 or K5, K2, K3 and its cast, K4, K12, K13), owned
-  by the decoder (``MeterDecoder.graph_crops``), which copies each
-  replay's result into a fresh buffer, so that no result aliases the
-  graph's memory.
+  BatchResult buffer (K1, K2, K3 and its cast, K4, K12, K13), owned by
+  the decoder (``MeterDecoder.graph_crops``), which copies each replay's
+  result into a fresh buffer, so that no result aliases the graph's
+  memory.
 
 The step writes the fallback slots it keeps into the crops between the
 two replays, eagerly, as the eager step does.

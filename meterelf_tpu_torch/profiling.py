@@ -26,7 +26,7 @@ The spans the port opens, all flat within one batch of the step:
 | --- | --- |
 | ``meterelf.step.backhalf`` | the coefficient step's uploads, JPEG back-half and fallback scatter (pipeline/decode.make_coef_decode_fn); on its graphs' path the input placement (pipeline/graphs.StepGraphs) and the slot choice |
 | ``meterelf.step.graph`` | the graphs' path: the back-half and decode graphs' replays, the fallback scatter between them and the result's copy out of the graph |
-| ``meterelf.decode.frontend`` | K1 or K5, or the scorer-only branch's lightness, score and locate |
+| ``meterelf.decode.frontend`` | K1, or the scorer-only branch's lightness, score and locate |
 | ``meterelf.decode.windows`` | K2 and its reshape |
 | ``meterelf.decode.ccl`` | K3, or K6 (ops/ccl.analyze_batch) |
 | ``meterelf.decode.stats`` | K4, or components.finalize |

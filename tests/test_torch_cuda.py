@@ -381,28 +381,6 @@ def test_correlation_kernels_equal_plain(case, name, fill):
         (n8 + 1, n9 + 1)
 
 
-@pytest.mark.parametrize("variant", [("merged", "fused"),
-                                     ("merged", "hist_pallas"),
-                                     ("split", "sort")])
-def test_variant_decodes_on_card_equal_cpu(case, variant):
-    """The quad branch under the decode knobs on the card equals the CPU
-    decoder, and launches exactly the variant's kernels."""
-    dec, crops, _ = case
-    fe, qs = variant
-    decs = [MeterDecoder(dec.params, device=d, frontend=fe, quad_stats=qs)
-            for d in (dec.device, "cpu")]
-    kernels = (frontend.frontend, windows.windows, frontend.frontend_windows,
-               ccl.ccl, stats.stats, ccl.propagate, stats.stats_select)
-    before = [k.launches for k in kernels]
-    a = decs[0].decode_numpy(crops)
-    n = [k.launches - b for k, b in zip(kernels, before)]
-    _equal_results(a, decs[1].decode_numpy(crops))
-    want = {("merged", "fused"): [0, 0, 1, 1, 1, 0, 0],
-            ("merged", "hist_pallas"): [0, 0, 1, 0, 0, 1, 1],
-            ("split", "sort"): [1, 1, 0, 0, 0, 1, 0]}[variant]
-    assert n == want, n
-
-
 def _equal_results(a, b):
     for f in a._fields:
         x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))

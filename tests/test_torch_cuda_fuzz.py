@@ -13,9 +13,7 @@ ports of tests/test_tpu_fuzz.py's:
 - crop decodes, on the card and by the same decoder on the CPU (the
   plain versions, which the CPU suite holds equal to the JAX package),
   every field compared: the default decode (the quad branch; FIVE_DIAL
-  takes the general branch), the merged + hist_pallas variant (K5, K6,
-  K7 on the quad branch; the knobs leave the general branch as it is)
-  and the scorer-only branch (``static_win_origin=None``, as
+  takes the general branch) and the scorer-only branch (``static_win_origin=None``, as
   chip_smoke.py builds it: K8 where its gate admits the camera, then K2
   and K6);
 - JPEG: the frames as quality-92 JPEGs (synthetic.encode_jpeg) through
@@ -39,10 +37,10 @@ ports of tests/test_tpu_fuzz.py's:
   (ops/result.result_pack_plain) on the card and the reference's raise
   order, bit for bit: the seeded and hand-made rows of
   tests/result_cases.py at B = 0, 1, odd and 256+ and D = 4, 5, 8; each
-  branch that ends in K12 (quad fused, quad hist_pallas, general,
-  scorer-only) decoding the fuzz frames with K13 and with the plain
-  stage; the one copy to the host (to_host_later) against per-field
-  copies, and kept arrays unchanged after later batches.
+  branch that ends in K12 (quad, general, scorer-only) decoding the fuzz
+  frames with K13 and with the plain stage; the one copy to the host
+  (to_host_later) against per-field copies, and kept arrays unchanged
+  after later batches.
 """
 import os
 
@@ -71,8 +69,6 @@ pytestmark = pytest.mark.cuda
 CAMERAS = {"default": synthetic.DEFAULT_CAMERA,
            "alt": synthetic.ALT_CAMERA,
            "five_dial": synthetic.FIVE_DIAL_CAMERA}
-LEGS = {"default": {}, "merged_hist_pallas": {"frontend": "merged",
-                                              "quad_stats": "hist_pallas"}}
 ANGLE_TOL = 1e-9   # f64 angle sums run in another order on the card
 KERNELS = (frontend.frontend, windows.windows, ccl.ccl, stats.stats,
            frontend.frontend_windows, ccl.propagate, stats.stats_select,
@@ -138,27 +134,24 @@ def assert_decodes_equal(a, b, label):
             err_msg=f"{label}: {f}")
 
 
-@pytest.mark.parametrize("leg", sorted(LEGS))
 @pytest.mark.parametrize("cam", sorted(CAMERAS))
-def test_fuzz_frames_on_card_equal_cpu(dev, crops, cam, leg):
+def test_fuzz_frames_on_card_equal_cpu(dev, crops, cam):
     """n_frames() fuzz frames of the camera: the card's decode equals the
-    CPU's in every field, and the card ran the leg's kernels."""
+    CPU's in every field, and the card ran the branch's kernels (K5 and
+    K7 never)."""
     camera, batch = CAMERAS[cam], crops(cam)
-    decs = [MeterDecoder(camera.make_params(), device=d, **LEGS[leg])
+    decs = [MeterDecoder(camera.make_params(), device=d)
             for d in (dev, "cpu")]
     before = [k.launches for k in KERNELS]
     a = decs[0].decode_numpy(batch)
     ran = {k.__name__: k.launches - n for k, n in zip(KERNELS, before)}
-    assert_decodes_equal(a, decs[1].decode_numpy(batch), f"{cam} {leg}")
+    assert_decodes_equal(a, decs[1].decode_numpy(batch), cam)
     if cam == "five_dial":
         want = {"frontend", "windows", "propagate"}
-    elif leg == "default":
-        want = {"frontend", "windows", "ccl", "stats"}
     else:
-        want = {"frontend_windows", "propagate", "stats_select"}
+        want = {"frontend", "windows", "ccl", "stats"}
     assert {k for k, n in ran.items() if n} == want | {"readout"}, ran
-    assert ran["readout"] == ran["windows" if cam == "five_dial" or
-                                 leg == "default" else "frontend_windows"]
+    assert ran["readout"] == ran["windows"]
     # the fuzz mix reaches past the easy rows
     assert (a.err != int(ErrCode.OK)).any() or n_frames() < 32
 
@@ -355,10 +348,7 @@ def test_readout_slot_counts_equal_plain(dev, crops, disk, ann):
 
 RESULT_SIZES = [(0, 4), (1, 4), (7, 4), (len(result_cases.HAND), 4),
                 (256, 4), (0, 5), (1, 5), (7, 5), (257, 5), (300, 8)]
-BRANCHES = {"quad": ("default", {}),
-            "hist_pallas": ("default", {"quad_stats": "hist_pallas"}),
-            "general": ("five_dial", {}),
-            "scorer": ("default", {})}
+BRANCHES = {"quad": "default", "general": "five_dial", "scorer": "default"}
 
 
 def pack_on(fn, x, dev):
@@ -401,11 +391,11 @@ def test_result_pack_equals_plain(dev, B, D):
 def test_result_pack_in_decode_equals_plain(dev, crops, branch,
                                             monkeypatch):
     """n_frames() fuzz frames, one row in 7 not loaded, down each branch
-    that ends in K12 (quad fused, quad hist_pallas, general, scorer-only):
+    that ends in K12 (quad, general, scorer-only):
     the decode's BatchResult with K13 equals the one with the plain stage
     on the card, every field bit for bit; K13 launches once a decode."""
-    cam, kw = BRANCHES[branch]
-    dec = MeterDecoder(CAMERAS[cam].make_params(), device=dev, **kw)
+    cam = BRANCHES[branch]
+    dec = MeterDecoder(CAMERAS[cam].make_params(), device=dev)
     if branch == "scorer":
         dec.static_kwargs["static_win_origin"] = None
     batch = crops(cam)

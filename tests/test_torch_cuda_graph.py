@@ -68,8 +68,8 @@ def _on(dev, feed):
     return [torch.as_tensor(a).to(dev) for a in feed[:5]] + list(feed[5:])
 
 
-def _step(dev, cam=synthetic.DEFAULT_CAMERA, **kw):
-    dec = MeterDecoder(cam.make_params(), device=dev, **kw)
+def _step(dev, cam=synthetic.DEFAULT_CAMERA):
+    dec = MeterDecoder(cam.make_params(), device=dev)
     step, win, pad_hw = make_coef_decode_fn(dec, FRAME_WH)
     return dec, step, win, pad_hw
 
@@ -95,20 +95,18 @@ def _same_bits(a, b, label):
         np.testing.assert_array_equal(x, y, err_msg=f"{label}: {f}")
 
 
-@pytest.mark.parametrize("front,rows,where", [
-    ("split", B, "device"), ("split", 100, "device"),
-    ("merged", B, "device"), ("split", B, "host"), ("merged", 100, "host")])
-def test_graph_step_equals_eager(dev, feed, front, rows, where):
-    """The quad step (either frontend, the full and a partial batch,
-    inputs on the card or from the host): the first call captures the
-    two graphs, every call replays both, and each result equals the
-    eager stages bit for bit; a replay counts one launch of each of its
-    kernels, K12 and K13 once a decode."""
-    dec, step, win, pad_hw = _step(dev, frontend=front)
+@pytest.mark.parametrize("rows,where", [
+    (B, "device"), (100, "device"), (B, "host"), (100, "host")])
+def test_graph_step_equals_eager(dev, feed, rows, where):
+    """The quad step (the full and a partial batch, inputs on the card or
+    from the host): the first call captures the two graphs, every call
+    replays both, and each result equals the eager stages bit for bit; a
+    replay counts one launch of each of its kernels, K12 and K13 once a
+    decode."""
+    dec, step, win, pad_hw = _step(dev)
     host = _cut(feed, rows)
     inputs = _on(dev, host) if where == "device" else host
-    k1 = frontend.frontend if front == "split" else frontend.frontend_windows
-    kernels = (jpeg_tail.backhalf_planes, k1, angles.readout,
+    kernels = (jpeg_tail.backhalf_planes, frontend.frontend, angles.readout,
                result.result_pack)
     c0 = _counters()
     first = to_host_later(step(None, *inputs))()
@@ -119,10 +117,10 @@ def test_graph_step_equals_eager(dev, feed, front, rows, where):
            for k, n in zip(kernels + tuple(launch.COUNTED), before)]
     assert list(_counters() - c0) == [2, 8, 0]
     assert ran[:4] == [3, 3, 3, 3]
-    assert sum(ran[4:]) == 3 * (7 if front == "split" else 6)
+    assert sum(ran[4:]) == 3 * 7
     want = _eager(dec, win, pad_hw, host)
     for i, g in enumerate([first] + got):
-        _same_bits(g, want, f"{front} B={rows} {where} call {i}")
+        _same_bits(g, want, f"B={rows} {where} call {i}")
     assert (want.err == 0).any() and (want.err != 0).any()
 
 
@@ -184,18 +182,16 @@ def test_device_feeds_past_the_bound_are_staged(dev, feed):
         g.out[0].untyped_storage().data_ptr() for g in dec._graphs.values()}
 
 
-@pytest.mark.parametrize("branch", ["five_dial", "scorer_only",
-                                    "hist_pallas", "block", "rescue"])
+@pytest.mark.parametrize("branch", ["five_dial", "scorer_only", "block",
+                                    "rescue"])
 def test_other_branches_capture_nothing(dev, feed, branch):
-    """The general five-dial branch, the scorer-only branch, the quad
-    branch's other stats and the block layout run the step eagerly, and
-    so does a decode under RESCUE_CAPS, even of a graph's own buffers: no
-    capture, no replay; K12 and K13 once a decode."""
+    """The general five-dial branch, the scorer-only branch and the block
+    layout run the step eagerly, and so does a decode under RESCUE_CAPS,
+    even of a graph's own buffers: no capture, no replay; K12 and K13
+    once a decode."""
     cam = (synthetic.FIVE_DIAL_CAMERA if branch == "five_dial"
            else synthetic.DEFAULT_CAMERA)
-    dec, step, win, pad_hw = _step(
-        dev, cam, **({"quad_stats": "hist_pallas"}
-                     if branch == "hist_pallas" else {}))
+    dec, step, win, pad_hw = _step(dev, cam)
     if branch == "scorer_only":
         dec.static_kwargs["static_win_origin"] = None
     host = _cut(feed, 16)

@@ -120,15 +120,12 @@ def test_plain_takes_flat_or_per_dial_flags():
                         "shapes")
 
 
-@pytest.mark.parametrize("branch", ["quad", "hist_pallas", "general",
-                                    "scorer"])
+@pytest.mark.parametrize("branch", ["quad", "general", "scorer"])
 def test_decode_returns_packed_result(branch):
     """Every branch's BatchResult is ten views of one buffer in the
     layout of (B, D); decode_numpy's fields are the same numbers."""
     cam = CAMERAS["five_dial" if branch == "general" else "default"]
-    dec = MeterDecoder(cam.make_params(), device="cpu",
-                       quad_stats="hist_pallas" if branch == "hist_pallas"
-                       else None)
+    dec = MeterDecoder(cam.make_params(), device="cpu")
     if branch == "scorer":
         dec.static_kwargs["static_win_origin"] = None
     D = len(dec.geom)

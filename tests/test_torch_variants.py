@@ -1,10 +1,10 @@
-"""The quad branch's decode variants (METERELF_FRONTEND, METERELF_QUAD_STATS)
-and their kernels, K5 frontend_windows, K7 stats_select and K9
-match_corr, in the PyTorch port (plain versions, as they run on the CPU)
-against the JAX package: Pallas kernels in interpret mode, as
-tests/test_ops.py runs them on the CPU, or through their JAX
-compositions; whole decodes under every frontend x quad_stats pair
-against the JAX CPU decoder; which kernels each pair runs.
+"""The kernels that no decode of the PyTorch port runs, K5
+frontend_windows, K7 stats_select and K9 match_corr (plain versions, as
+they run on the CPU), against the JAX package: Pallas kernels in
+interpret mode, as tests/test_ops.py runs them on the CPU, or through
+their JAX compositions. And the JAX package's decode knobs, which select
+nothing in the port: whole decodes under each of them against the JAX
+CPU decoder, and the kernels each decode runs.
 
 Tolerances: exact for window bits, match locations, keymax, needle
 regions and every discrete decode field. K5's max_val against the JAX
@@ -46,7 +46,23 @@ CAMERAS = {
     "default": (j_syn.DEFAULT_CAMERA, t_syn.DEFAULT_CAMERA),
     "alt": (j_syn.ALT_CAMERA, t_syn.ALT_CAMERA),
 }
-PAIRS = [(fe, qs) for fe in t_decode.FRONTENDS for qs in t_decode.QUAD_STATS]
+# one value of each JAX decode knob other than the JAX default, as
+# meterelf_tpu/ops/pallas_{ccl,stats,frontend}.py and
+# meterelf_tpu/pipeline/decode.py parse them
+KNOBS = [("METERELF_FRONTEND", "merged"),
+         ("METERELF_QUAD_STATS", "hist_pallas"),
+         ("METERELF_QUAD_STATS", "sort"),
+         ("METERELF_QUAD_STATS", "hist"),
+         ("METERELF_QUAD_STATS", "hist_pallas_interpret"),
+         ("METERELF_CCL_SKIPREV", "1"),
+         ("METERELF_CCL_GLUE", "fwd"),
+         ("METERELF_CCL_GQ", "16"),
+         ("METERELF_STATS_GW", "8"),
+         ("METERELF_STATS_SLICED", "1"),
+         ("METERELF_CCL_DEQUAD", "0"),
+         ("METERELF_FE_SHEAR", "0"),
+         ("METERELF_FE_XG", "4"),
+         ("METERELF_CCL_RIDMM", "0")]
 
 
 def _pack(crops):
@@ -281,7 +297,7 @@ def _frames(jc, tc):
     return np.concatenate([synth, stub, fuzz])
 
 
-@pytest.fixture(scope="module", params=sorted(CAMERAS))
+@pytest.fixture(scope="module")
 def reference(request, tmp_path_factory):
     """(port camera, crops, the JAX CPU decoder's result) per camera."""
     jc, tc = CAMERAS[request.param]
@@ -290,65 +306,20 @@ def reference(request, tmp_path_factory):
     return tc, crops, jdec.decode_numpy(crops)
 
 
-@pytest.mark.parametrize("pair", PAIRS, ids=["-".join(p) for p in PAIRS])
-def test_variant_decode_matches_jax(reference, pair):
-    """MeterDecoder(device="cpu", frontend=, quad_stats=) equals the JAX
-    CPU decoder (which takes one graph whatever the knobs) on synthetic,
-    stub-needle and fuzz crops; so does the same pair read from the
-    environment."""
+@pytest.mark.parametrize("reference", sorted(CAMERAS), indirect=True)
+@pytest.mark.parametrize("knob", KNOBS, ids=["=".join(k) for k in KNOBS])
+def test_jax_decode_knobs_select_nothing(reference, knob, monkeypatch):
+    """With one JAX decode knob set, MeterDecoder(device="cpu") equals the
+    JAX CPU decoder on synthetic, stub-needle and fuzz crops, and calls
+    exactly K1, K2, K3 and K4's wrappers on the quad branch and K1, K2
+    and K6's on the five-dial camera's (recorded by monkeypatching them
+    where the decode looks them up)."""
     tc, crops, ref = reference
-    fe, qs = pair
-    res = MeterDecoder(tc.make_params(), device="cpu", frontend=fe,
-                       quad_stats=qs).decode_numpy(crops)
-    assert_port_equal(ref, res, f"{fe} x {qs}")
+    monkeypatch.setenv(*knob)
+    res = MeterDecoder(tc.make_params(), device="cpu").decode_numpy(crops)
+    assert_port_equal(ref, res, "=".join(knob))
     assert (res.err[:4] == 0).all()
 
-
-def test_knobs_read_from_environment(monkeypatch):
-    params = t_syn.DEFAULT_CAMERA.make_params()
-    monkeypatch.setenv("METERELF_FRONTEND", "merged")
-    monkeypatch.setenv("METERELF_QUAD_STATS", "hist_pallas_interpret")
-    dec = MeterDecoder(params, device="cpu")
-    assert (dec.frontend, dec.quad_stats) == ("merged", "hist_pallas")
-    dec = MeterDecoder(params, device="cpu", frontend="split",
-                       quad_stats="sort")
-    assert (dec.frontend, dec.quad_stats) == ("split", "sort")
-    monkeypatch.delenv("METERELF_FRONTEND")
-    monkeypatch.delenv("METERELF_QUAD_STATS")
-    dec = MeterDecoder(params, device="cpu")
-    assert (dec.frontend, dec.quad_stats) == ("split", "fused")
-
-
-@pytest.mark.parametrize("kw", [{"frontend": "fused"},
-                                {"quad_stats": "merged"},
-                                {"quad_stats": "hist_pallas_debug"},
-                                {"frontend": ""}])
-def test_unknown_knob_raises(kw, monkeypatch):
-    params = t_syn.DEFAULT_CAMERA.make_params()
-    with pytest.raises(ValueError, match="expected one of"):
-        MeterDecoder(params, device="cpu", **kw)
-    monkeypatch.setenv("METERELF_QUAD_STATS", "banana")
-    with pytest.raises(ValueError, match="METERELF_QUAD_STATS"):
-        MeterDecoder(params, device="cpu")
-
-
-# which kernel wrappers each pair calls on the quad branch
-ROUTES = {
-    ("split", "fused"): {"frontend", "windows", "ccl", "stats"},
-    ("merged", "fused"): {"frontend_windows", "ccl", "stats"},
-}
-for _fe, _k in (("split", {"frontend", "windows"}),
-                ("merged", {"frontend_windows"})):
-    ROUTES[(_fe, "hist_pallas")] = _k | {"propagate", "stats_select"}
-    for _qs in ("sort", "hist"):
-        ROUTES[(_fe, _qs)] = _k | {"propagate"}
-
-
-@pytest.mark.parametrize("pair", PAIRS, ids=["-".join(p) for p in PAIRS])
-def test_variant_routing(pair, monkeypatch):
-    """Each pair calls exactly its kernels' wrappers (recorded by
-    monkeypatching them where the decode looks them up); the frontend
-    non-quad branch (five dials) reads neither knob."""
     calls = []
 
     def record(module, name):
@@ -359,19 +330,25 @@ def test_variant_routing(pair, monkeypatch):
             return fn(*a, **k)
         monkeypatch.setattr(module, name, wrapper)
 
-    for name in ("frontend", "frontend_windows", "windows", "ccl", "stats"):
+    for name in ("frontend", "windows", "ccl", "stats"):
         record(t_decode, name)
     record(ccl, "propagate")
     record(components, "stats_select")
-    fe, qs = pair
-    cam = t_syn.DEFAULT_CAMERA
-    crops = cam.render_crops([[1.0, 3.5, 7.2, 9.9]])
-    MeterDecoder(cam.make_params(), device="cpu", frontend=fe,
-                 quad_stats=qs).decode_numpy(crops)
-    assert set(calls) == ROUTES[pair] and len(calls) == len(ROUTES[pair])
+    record(frontend, "frontend_windows")
+    MeterDecoder(tc.make_params(), device="cpu").decode_numpy(
+        tc.render_crops([[1.0, 3.5, 7.2, 9.9]]))
+    assert calls == ["frontend", "windows", "ccl", "stats"]
     calls.clear()
     five = t_syn.FIVE_DIAL_CAMERA
-    MeterDecoder(five.make_params(), device="cpu", frontend=fe,
-                 quad_stats=qs).decode_numpy(five.render_crops(
-                     [[1.0, 3.5, 7.2, 9.9, 2.2]]))
+    MeterDecoder(five.make_params(), device="cpu").decode_numpy(
+        five.render_crops([[1.0, 3.5, 7.2, 9.9, 2.2]]))
     assert calls == ["frontend", "windows", "propagate"]
+
+
+@pytest.mark.parametrize("kw", ["frontend", "quad_stats"])
+def test_variant_arguments_raise_type_error(kw):
+    """MeterDecoder takes neither ``frontend=`` nor ``quad_stats=``, as
+    the JAX decoder takes neither."""
+    with pytest.raises(TypeError):
+        MeterDecoder(t_syn.DEFAULT_CAMERA.make_params(), device="cpu",
+                     **{kw: "split" if kw == "frontend" else "fused"})
