@@ -648,12 +648,30 @@ def histogram(n) -> dict:
 
 
 def corr_mma(H: int, W: int, th: int, tw: int) -> int:
-    """mma.sync.m16n8k32 instructions the tensor-core correlation
-    (csrc/corr_mma.cuh) executes for one image: 16-wide x tiles times
-    8-high y tiles, times th template rows, times the k32 steps of each
-    x tile's band, ceil((tw + 15) / 32)."""
+    """mma.sync.m16n8k32 instructions the tensor-core correlation of K5,
+    K8 and K9 (csrc/corr_mma.cuh) executes for one image: 16-wide x tiles
+    times 8-high y tiles, times th template rows, times the k32 steps of
+    each x tile's band, ceil((tw + 15) / 32)."""
     oh, ow = H - th + 1, W - tw + 1
     return -(-ow // 16) * -(-oh // 8) * th * -(-(tw + 15) // 32)
+
+
+def k1_steps(H: int, W: int, th: int, tw: int) -> int:
+    """k32 steps of K1's warpgroup products for one image
+    (csrc/corr_wgmma.cuh): th template rows times each 64-row x tile's
+    band steps, ceil((63 + tw) / 32) less those past column W; each step
+    is 64 x n x 32 MACs, n = 16 ceil(oh / 16)."""
+    ow = W - tw + 1
+    nj = -(-(63 + tw) // 32)
+    return th * sum(min(nj, -(-(W - x0) // 32)) for x0 in range(0, ow, 64))
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reads now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout
+    return float(out.split()[0])
 
 
 def profile_ms(label: str, fn, reps: int = 5) -> None:
@@ -872,6 +890,9 @@ def main() -> int:
               "C entry differs from the wrapper")
         results["frontend"]["kernel_ms"] = cuda_ms(
             lambda: lib.meterelf_frontend(*c_args), 10)
+        clk = sm_clock_mhz()
+        results["frontend"]["cold_ms"] = cold_ms(
+            lambda: lib.meterelf_frontend(*c_args), 10, state["flush"])
         results["frontend"]["plain_ms"] = cuda_ms(
             lambda: frontend.frontend_plain(*args), 3)
         # yardstick: the correlation alone as one fp32 convolution (exact:
@@ -888,11 +909,23 @@ def main() -> int:
         results["frontend"].update(bound(
             packed.numel() * 4 + th * tw + 12 * B, 2 * macs,
             INT8_TC_OPS_PER_S))
+        n = -(-(H - th + 1) // 16) * 16
+        steps = B * k1_steps(H, W, th, tw)
+        k1_macs = steps * 64 * n * 32
+        kern = results["frontend"]["kernel_ms"]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        say(f"K1 (B={B}, {H}x{W} crop, {th}x{tw} template): {steps} "
+            f"wgmma k32 steps of m64n{n} = {k1_macs / 1e9:.3f} G int8 MACs "
+            f"executed, {k1_macs / macs:.3f}x the function's "
+            f"{macs / 1e9:.3f} G; C entry {kern} ms (L2 emptied first "
+            f"{results['frontend']['cold_ms']} ms) = "
+            f"{kern * 1e-3 * clk * 1e6 * sms / steps:.1f} SM clocks a step "
+            f"an SM at {clk:.0f} MHz, staging and epilogue included "
+            f"({n // 2} at the int8 peak)")
         n_mma = B * corr_mma(H, W, th, tw)
-        say(f"correlation (K1, K5, K8, K9; B={B}, {H}x{W} crop, {th}x{tw} "
-            f"template): {n_mma} mma.sync.m16n8k32 = {n_mma * 4096 / 1e9:.3f}"
-            f" G int8 MACs executed, {n_mma * 4096 / macs:.3f}x the "
-            f"function's {macs / 1e9:.3f} G")
+        say(f"correlation of K5, K8, K9 at the same shape: {n_mma} "
+            f"mma.sync.m16n8k32 = {n_mma * 4096 / 1e9:.3f} G int8 MACs, "
+            f"{n_mma * 4096 / macs:.3f}x the function's")
 
     def k2() -> None:
         args = (packed, state["mx"], state["my"], dec.geom, dec.disk,

@@ -1,5 +1,6 @@
-"""What bounds the port's tensor-core correlation (K1, K5, K8, K9) on the
-card: device time of each kernel alone, and of K8 as the batch, the
+"""What bounds the port's mma.sync correlation (K5, K8, K9; K1 runs the
+wgmma one of csrc/corr_wgmma.cuh, timed by experiments/torch_k1_ab.py) on
+the card: device time of each kernel alone, and of K8 as the batch, the
 template's rows and its width move around the flagship shape; the card's
 own mma.sync.m16n8k32 s8 rate beside it; and K8 built from variants of
 csrc/corr_mma.cuh.
@@ -267,9 +268,6 @@ def main() -> int:
               f"{per:.2f} SM clocks per mma per SM at {clk:.0f} MHz")
 
     fe_args = (packed, tm, dec.score_c1, dec.score_c0)
-    report("K1 frontend", kernel_ms(lambda: frontend.frontend(*fe_args),
-                                    "frontend_kernel<false>"),
-           B, H, W, th, tw)
     report("K5 frontend_windows", kernel_ms(
         lambda: frontend.frontend_windows(*fe_args, dec.geom, dec.disk,
                                           dec.hue_shift),

@@ -15,27 +15,43 @@
 //
 // What bounds it on the H100: int8 multiply-adds. 132 x 63 offsets x
 // 119 x 188 taps = 186 M MACs per flagship image, 0.048 ms a batch of 256
-// at the int8 tensor-core peak. The design puts them on the tensor cores
-// and keeps the image on the SM: one CTA per image stages L-128 and T-128
-// as int8 in shared memory beside the column prefix of the row-window
-// sums of L-128 (162,804 bytes at the flagship shape, so the image is read
-// from device memory once), and its 16 warps run the correlation as an
-// implicit GEMM of mma.sync.m16n8k32 int8 instructions (corr_mma.cuh,
-// shared with K8 and K9): 56,644 a flagship image, 4,096 MACs each, 1.25x
-// the MACs the function needs (the band's padding). Beside each mma a
-// warp issues one ldmatrix and its share of the band fragment's shared
-// loads; the score and the argmax run on the accumulators in registers.
-// On an H100 SXM at 700 W the loop spends ~5.3 SM clocks per mma where
-// mma.sync alone sustains ~1.7 (experiments/torch_corr_sweep.py): those
-// shared-memory loads (~3.6 wavefronts a mma, counted, not profiled) are
-// the likeliest bound now, beside ~0.05 ms a batch of serial staging.
+// at the int8 tensor-core peak. The design puts them on Hopper's
+// warpgroup product and keeps the image on the SM (corr_wgmma.cuh): one
+// CTA of two warpgroups per image stages L - 128 as int8 in 16-byte
+// column chunks that the tensor cores read by descriptor, and T - 128
+// with zero margins from which each warp builds its rows of the band in
+// registers, 105,872 bytes at the flagship shape (two CTAs an SM, so all
+// 256 images of a batch are resident at once; the image is read from
+// device memory once). Each warpgroup then runs half of the template
+// rows as wgmma.m64n144k32 s8 products (an m64n128 and an m64n16 a k32
+// step; x = 64 rows, y = oh rounded up to 16 columns, 8 k32 steps a
+// template row): 952 steps a flagship image, 280.8 M MACs, 1.51x the
+// MACs the function needs (the band's padding and the 12 y columns past
+// oh). box' comes after the products from the same staged L' (a warp
+// scan of each row, then column windows); corr8 goes to shared memory
+// (the second warpgroup's half of the rows added to the first's), and
+// every thread scores its share of the offsets and keeps their first
+// maximum. Measured on an H100 SXM at 700 W (experiments/torch_k1_ab.py,
+// 256 flagship crops): 0.166 ms, 178 SM clocks per k32 step and SM all
+// told. The products take ~0.097 ms, ~100 clocks a step, as the loop
+// alone does at four warpgroups an SM against 72 at the int8 peak
+// (experiments/torch_wgmma_probe.py; a band built once, with no fence or
+// wait, runs at ~85); the staging ~0.039 ms (reading the batch's 64 MB
+// of crops takes 0.019 at 3.35 TB/s), box' ~0.019, the epilogue ~0.01:
+// the two CTAs of an SM stage, multiply and reduce in step, so none of
+// that is hidden behind the other's products.
 // No superwindow is written: K2 reads the windows straight from the crop
 // at (mx, my).
 //
-// K5 `frontend_windows` (the same kernel, kWindows = true) replaces
+// K5 `frontend_windows` (frontend_kernel<true>) replaces
 // meterelf_tpu/ops/pallas_frontend.py frontend_windows_pallas
-// (_frontend_windows_kernel), the METERELF_FRONTEND=merged variant: after
-// K1's correlation and argmax the same CTA reuses its shared memory for the
+// (_frontend_windows_kernel), the METERELF_FRONTEND=merged variant: the
+// correlation and argmax of corr_mma.cuh's mma.sync.m16n8k32 loop
+// (shared with K8 and K9; 162,804 bytes of staging at the flagship shape;
+// on an H100 SXM at 700 W the loop spends ~5.3 SM clocks per mma where
+// mma.sync alone sustains ~1.7, experiments/torch_corr_sweep.py: its
+// shared-memory loads, ~3.6 wavefronts a mma, counted, not profiled, are
+// the likeliest bound), then the same CTA reuses its shared memory for the
 // 4 dial windows at (mx + ox, my + oy), through K2's body
 // (window_bits.cuh: all four at once, 4 of its 16 warps a window, 2 KB of
 // row words in the correlation's staging), and writes K2's bits layout.
@@ -49,6 +65,7 @@
 #include <limits.h>
 
 #include "corr_mma.cuh"
+#include "corr_wgmma.cuh"
 #include "exact_color.cuh"
 #include "meterelf_kernels.h"
 #include "window_bits.cuh"
@@ -66,6 +83,69 @@ struct WinGeom4 {
 
 __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);
+}
+
+// L' = L - 128 of a packed pixel
+struct LightnessL8 {
+  __device__ int operator()(int p) const {
+    return meterelf_lightness(p) - 128;
+  }
+};
+
+// K1: the first maximum of the score over the block's offsets, with
+// ties to the smaller row-major index. NB = n / 8 column blocks; two CTAs
+// an SM where the accumulators (4 NB registers) leave room.
+template <int NB>
+__global__ void __launch_bounds__(corrwg::kThreads, NB <= 18 ? 2 : 1)
+    frontend_kernel_wgmma(const int32_t* __restrict__ packed, int H, int W,
+                          const uint8_t* __restrict__ tmpl, int th, int tw,
+                          float c1, float c0, float* __restrict__ max_val,
+                          int32_t* __restrict__ out_mx,
+                          int32_t* __restrict__ out_my) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const corrwg::Layout g = corrwg::layout(H, W, th, tw);
+  corrwg::stage(smem, g, packed + (size_t)blockIdx.x * H * W, tmpl, th, tw,
+                LightnessL8());
+  float best = -FLT_MAX;
+  int best_i = INT_MAX;
+  corrwg::correlate<NB>(smem, g, th, tw, [&](int y, int x, int acc,
+                                             int box) {
+    const float s = __fadd_rn(
+        __fadd_rn(__int2float_rn(acc), __fmul_rn(c1, __int2float_rn(box))),
+        c0);
+    const int i = y * g.ow + x;
+    if (better(s, i, best, best_i)) {
+      best = s;
+      best_i = i;
+    }
+  });
+  for (int off = 16; off > 0; off >>= 1) {
+    const float s = __shfl_down_sync(0xffffffffu, best, off);
+    const int i = __shfl_down_sync(0xffffffffu, best_i, off);
+    if (better(s, i, best, best_i)) {
+      best = s;
+      best_i = i;
+    }
+  }
+  __shared__ float red_s[corrwg::kWarps];
+  __shared__ int red_i[corrwg::kWarps];
+  const int tid = threadIdx.x;
+  if ((tid & 31) == 0) {
+    red_s[tid >> 5] = best;
+    red_i[tid >> 5] = best_i;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < corrwg::kWarps; ++w) {
+      if (better(red_s[w], red_i[w], best, best_i)) {
+        best = red_s[w];
+        best_i = red_i[w];
+      }
+    }
+    max_val[blockIdx.x] = best;
+    out_mx[blockIdx.x] = best_i % g.ow;
+    out_my[blockIdx.x] = best_i / g.ow;
+  }
 }
 
 template <bool kWindows>
@@ -154,23 +234,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int frontend_smem(int H, int W, int th, int tw, bool windows) {
+int frontend_windows_smem(int H, int W, int th, int tw) {
   const int bytes = corr8::layout(H, W, th, tw).bytes;
   const int win = winbits::smem_bytes(kDials);
-  return windows && win > bytes ? win : bytes;
+  return win > bytes ? win : bytes;
 }
 
-template <bool kWindows>
-int launch(const int32_t* packed, int B, int H, int W, const uint8_t* tmpl,
-           int th, int tw, float c1, float c0, float* max_val, int32_t* mx,
-           int32_t* my, const WinGeom4& wg, const uint8_t* disk,
-           int hue_shift, int32_t* bits, void* stream) {
-  const int bytes = frontend_smem(H, W, th, tw, kWindows);
+template <int NB>
+int launch_k1(const int32_t* packed, int B, int H, int W, const uint8_t* tmpl,
+              int th, int tw, float c1, float c0, float* max_val, int32_t* mx,
+              int32_t* my, int bytes, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      frontend_kernel<kWindows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      frontend_kernel_wgmma<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return (int)e;
-  frontend_kernel<kWindows><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+  frontend_kernel_wgmma<NB><<<B, corrwg::kThreads, bytes,
+                              (cudaStream_t)stream>>>(
+      packed, H, W, tmpl, th, tw, c1, c0, max_val, mx, my);
+  return (int)cudaGetLastError();
+}
+
+int launch_k5(const int32_t* packed, int B, int H, int W, const uint8_t* tmpl,
+              int th, int tw, float c1, float c0, float* max_val, int32_t* mx,
+              int32_t* my, const WinGeom4& wg, const uint8_t* disk,
+              int hue_shift, int32_t* bits, void* stream) {
+  const int bytes = frontend_windows_smem(H, W, th, tw);
+  cudaError_t e = cudaFuncSetAttribute(
+      frontend_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return (int)e;
+  frontend_kernel<true><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       packed, H, W, tmpl, th, tw, c1, c0, max_val, mx, my, wg, disk,
       hue_shift, bits);
   return (int)cudaGetLastError();
@@ -179,15 +272,26 @@ int launch(const int32_t* packed, int B, int H, int W, const uint8_t* tmpl,
 }  // namespace
 
 extern "C" int meterelf_frontend_smem_bytes(int H, int W, int th, int tw) {
-  return frontend_smem(H, W, th, tw, false);
+  return corrwg::layout(H, W, th, tw).bytes;
 }
 
 extern "C" int meterelf_frontend(const int32_t* packed, int B, int H, int W,
                                  const uint8_t* tmpl, int th, int tw,
                                  float c1, float c0, float* max_val,
                                  int32_t* mx, int32_t* my, void* stream) {
-  return launch<false>(packed, B, H, W, tmpl, th, tw, c1, c0, max_val, mx,
-                       my, WinGeom4{}, nullptr, 0, nullptr, stream);
+  const corrwg::Layout g = corrwg::layout(H, W, th, tw);
+  if (g.bytes < 0) return (int)cudaErrorInvalidValue;
+#define K1_CASE(C)                                                        \
+  case C:                                                                 \
+    return launch_k1<2 * C>(packed, B, H, W, tmpl, th, tw, c1, c0, max_val, \
+                            mx, my, g.bytes, stream);
+  switch (g.n / 16) {  // n = 16 .. 208
+    K1_CASE(1) K1_CASE(2) K1_CASE(3) K1_CASE(4) K1_CASE(5) K1_CASE(6)
+    K1_CASE(7) K1_CASE(8) K1_CASE(9) K1_CASE(10) K1_CASE(11) K1_CASE(12)
+    K1_CASE(13)
+  }
+#undef K1_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int meterelf_frontend_windows(
@@ -204,6 +308,6 @@ extern "C" int meterelf_frontend_windows(
     wg.cy[d] = q[3];
     for (int c = 0; c < 3; ++c) wg.cr[d][c] = q[4 + c];
   }
-  return launch<true>(packed, B, H, W, tmpl, th, tw, c1, c0, max_val, mx, my,
-                      wg, disk, hue_shift, bits, stream);
+  return launch_k5(packed, B, H, W, tmpl, th, tw, c1, c0, max_val, mx, my,
+                   wg, disk, hue_shift, bits, stream);
 }

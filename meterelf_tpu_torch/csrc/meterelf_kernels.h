@@ -16,14 +16,17 @@ extern "C" {
 // first-max row-major argmax. packed [B, H, W] i32 (b | g<<8 | r<<16),
 // tmpl [th, tw] u8. c1 = 128 - tmean (f32), c0 = the f32 residual of
 // the f32-rounded template mean. Out: max_val [B] f32, mx/my [B] i32.
+// Takes crops within 256 x 256 with at most 128 x and 208 y offsets
+// (else returns cudaErrorInvalidValue).
 int meterelf_frontend(const int32_t* packed, int B, int H, int W,
                       const uint8_t* tmpl, int th, int tw,
                       float c1, float c0,
                       float* max_val, int32_t* mx, int32_t* my,
                       void* stream);
 
-// Shared memory the frontend kernel needs for one image (bytes); the
-// wrapper refuses geometries above the card's per-block limit.
+// Shared memory K1 needs for one image (bytes), or -1 for a geometry it
+// does not take; the wrapper refuses geometries above the card's
+// per-block limit.
 int meterelf_frontend_smem_bytes(int H, int W, int th, int tw);
 
 // K5: K1, then in the same block K2's windows of its 4 dials at the

@@ -17,8 +17,9 @@ mean, both from ``score_constants`` in f64 on the host. No superwindow
 is produced: the windows stage reads the crop at (mx, my) directly.
 
 ``frontend`` is the wrapper: on a CPU tensor it runs ``frontend_plain``;
-on a CUDA tensor it launches the CUDA kernel (csrc/frontend.cu) or
-raises.
+on a CUDA tensor it launches the CUDA kernel (csrc/frontend.cu, the
+correlation as Hopper warpgroup products in csrc/corr_wgmma.cuh, whose
+shared-memory layout ``k1_layout`` mirrors) or raises.
 
 K5 ``frontend_windows`` ports pallas_frontend.frontend_windows_pallas,
 the JAX decode's METERELF_FRONTEND=merged variant of the quad branch: K1
@@ -101,8 +102,8 @@ def fits(crop_h: int, crop_w: int, th: int, tw: int) -> bool:
 
 
 def smem_bytes(H: int, W: int, th: int, tw: int) -> int:
-    """Shared memory the correlation stages for one image in K1, K8 and
-    K9 (K5 takes the larger of this and its window stage;
+    """Shared memory the mma.sync correlation stages for one image in K8
+    and K9 (K5 takes the larger of this and its window stage;
     corr8::layout in csrc/corr_mma.cuh): the L - 128 rows of every
     (16 x, 8 y) tile's reach, 8 * ceil(oh / 8) + th - 1 rows of 16 * odd
     bytes covering the nj = ceil((tw + 15) / 32) k32 steps of the last x
@@ -118,12 +119,89 @@ def smem_bytes(H: int, W: int, th: int, tw: int) -> int:
     return lrows * ls + th * (32 * nj + 32) + (H + 1) * ow * 4
 
 
+K1_WARPS = 8          # two warpgroups a block (corrwg::kThreads = 256)
+K1_MAX_HW = 256       # crop rows and columns: one staged row a warp
+K1_MAX_OW = 128       # two 64-row x tiles
+K1_MAX_OH = 208       # the gate's largest oh, 193, rounded up to 16
+K1_TMARGIN = 64       # zero bytes before template row 0
+K1_SCAN_WORDS = 264   # a warp's row prefix in the box' phase
+
+
+class K1Layout(NamedTuple):
+    """corrwg::layout (csrc/corr_wgmma.cuh): K1's shared memory for one
+    image. Region A holds L' in 16-byte column chunks during the products
+    (byte (s, k) at (k // 16) * ch + 16 * s + k % 16), then box' [ow, ds]
+    i32; region B, from off_b, the template rows (ts bytes apart, 64 zero
+    bytes first), then the row-window sums [H, ow] i16 with the warps'
+    prefix rows at off_scan, then corr8 [64 nm, ds] i32. Fields may be
+    numpy arrays."""
+
+    H: int
+    W: int
+    oh: int
+    ow: int
+    nm: int        # 64-row x tiles
+    n: int         # y columns of a product: oh rounded up to 16
+    nj: int        # k32 steps of a whole x tile
+    kc: int        # staged column chunks
+    ch: int        # bytes a chunk, = 16 mod 128
+    ts: int        # bytes a staged template row
+    t_bytes: int   # the staged template
+    ds: int        # words a row of box' and of corr8
+    off_b: int
+    off_scan: int
+    bytes: int     # the whole, or -1 where K1 does not take the geometry
+
+
+def _up(a, m):
+    return -(-a // m) * m
+
+
+def k1_layout(H, W, th, tw) -> K1Layout:
+    """K1's layout at crop (H, W) and template (th, tw): ints, or numpy
+    arrays of them."""
+    oh, ow = H - th + 1, W - tw + 1
+    n = _up(oh, 16)
+    nj = -(-(63 + tw) // 32)
+    kc = 2 * -(-W // 32)
+    ch = _up(16 * H - 16, 128) + 16
+    ts = _up(tw + np.maximum(64, ow - 1), 16)
+    t_bytes = _up(np.maximum(K1_TMARGIN + th * ts,
+                             (th - 1) * ts + 32 * nj + 68), 16)
+    ds = n + 8
+    l_bytes = (kc - 1) * ch + 16 * (th - 1 + n)     # the descriptors' reach
+    off_b = _up(np.maximum(l_bytes, 4 * ow * ds), 128)
+    off_scan = _up(2 * H * ow, 16)
+    rw_bytes = off_scan + 4 * K1_WARPS * K1_SCAN_WORDS
+    nm = -(-ow // 64)
+    x_bytes = 4 * 64 * nm * ds
+    nbytes = off_b + np.maximum(t_bytes, np.maximum(rw_bytes, x_bytes))
+    taken = ((oh >= 1) & (oh <= K1_MAX_OH) & (ow >= 1) & (ow <= K1_MAX_OW)
+             & (H <= K1_MAX_HW) & (W <= K1_MAX_HW))
+    nbytes = np.where(taken, nbytes, -1)
+    if np.ndim(nbytes) == 0:
+        return K1Layout(*(int(v) for v in (H, W, oh, ow, nm, n, nj, kc, ch,
+                                           ts, t_bytes, ds, off_b, off_scan,
+                                           nbytes)))
+    return K1Layout(H, W, oh, ow, nm, n, nj, kc, ch, ts, t_bytes, ds, off_b,
+                    off_scan, nbytes)
+
+
+def k1_smem_bytes(H: int, W: int, th: int, tw: int) -> int:
+    """K1's dynamic shared memory for one image (meterelf_frontend_smem_
+    bytes), or -1 where K1 does not take the geometry (a crop past 256 x
+    256, ow past 128 or oh past 208)."""
+    return k1_layout(H, W, th, tw).bytes
+
+
 def frontend_ok(crop_h: int, crop_w: int, th: int, tw: int) -> bool:
-    """The frontend branches' gate: the JAX package's, and K1's staging
+    """The frontend branches' gate: the JAX package's, and K1's layout
     within a block's shared memory (never the binding condition inside
-    the JAX gate: its largest geometries stage under 228 KB)."""
-    return (fits(crop_h, crop_w, th, tw)
-            and smem_bytes(crop_h, crop_w, th, tw) <= SMEM_LIMIT)
+    the JAX gate: its largest geometries take 221,184 B)."""
+    if not fits(crop_h, crop_w, th, tw):
+        return False
+    nbytes = k1_smem_bytes(crop_h, crop_w, th, tw)
+    return 0 <= nbytes <= SMEM_LIMIT
 
 
 def score_constants(template_u8: np.ndarray) -> Tuple[float, float]:
@@ -207,19 +285,26 @@ def locate(scores: torch.Tensor
 
 
 def _check_kernel_args(name: str, packed: torch.Tensor,
-                       template_u8: torch.Tensor) -> int:
+                       template_u8: torch.Tensor, smem) -> int:
     """The checks K1 and K5 share on CUDA tensors: dtypes, a template that
-    fits the crop, and K1's shared memory within a block's limit -> B."""
+    fits the crop, and the kernel's shared memory, ``smem(H, W, th, tw)``
+    (-1 where it does not take the geometry), within a block's limit ->
+    B."""
     check_cuda(name, packed, torch.int32, 3)
     check_cuda(name, template_u8, torch.uint8, 2, like=packed)
     B, H, W = packed.shape
     th, tw = template_u8.shape
     if not (1 <= th <= H and 1 <= tw <= W):
         raise ValueError(f"template {(th, tw)} does not fit crop {(H, W)}")
-    smem = smem_bytes(H, W, th, tw)
-    if smem > SMEM_LIMIT:
+    nbytes = smem(H, W, th, tw)
+    if nbytes < 0:
         raise ValueError(
-            f"crop {(H, W)} with template {(th, tw)} needs {smem} B of "
+            f"{name} takes crops within {K1_MAX_HW} x {K1_MAX_HW}, at most "
+            f"{K1_MAX_OW} x and {K1_MAX_OH} y offsets: crop {(H, W)}, "
+            f"template {(th, tw)}")
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(
+            f"crop {(H, W)} with template {(th, tw)} needs {nbytes} B of "
             f"shared memory, above the {SMEM_LIMIT} B a block may use")
     return B
 
@@ -252,7 +337,7 @@ def frontend(packed: torch.Tensor, template_u8: torch.Tensor,
     """K1 wrapper -> (max_val f32 [B], mx i32 [B], my i32 [B])."""
     if packed.device.type == "cpu":
         return frontend_plain(packed, template_u8, c1, c0)
-    B = _check_kernel_args("frontend", packed, template_u8)
+    B = _check_kernel_args("frontend", packed, template_u8, k1_smem_bytes)
     args, out = c_args(packed, template_u8, c1, c0)
     if B == 0:
         return tuple(out)
@@ -291,7 +376,8 @@ def frontend_windows(packed: torch.Tensor, template_u8: torch.Tensor,
     if packed.device.type == "cpu":
         return frontend_windows_plain(packed, template_u8, c1, c0, geom,
                                       disk, hue_shift)
-    B = _check_kernel_args("frontend_windows", packed, template_u8)
+    B = _check_kernel_args("frontend_windows", packed, template_u8,
+                           smem_bytes)
     # the kernel reads the disk two bytes at a time
     check_cuda("frontend_windows", disk, torch.uint8, 3, like=packed,
                align=2)

@@ -9,7 +9,7 @@ its argmax.
   int8 decomposition of K1), and the score is f32(corr) - tmean *
   f32(box), each operation rounded once. Its bound on the H100 is its
   int8 multiply-adds (47.63 G a flagship batch of 256); it runs them
-  on the int8 tensor cores as K1 does, an implicit GEMM of
+  on the int8 tensor cores as K5 does, an implicit GEMM of
   mma.sync.m16n8k32 instructions against a band matrix built from each
   template row in registers, with the image staged once in shared
   memory (csrc/corr_mma.cuh; csrc/frontend.cu notes what bounds the

@@ -1,5 +1,6 @@
 """A model, in torch, of the index math of csrc/corr_mma.cuh: the implicit
-GEMM that K1, K5, K8 and K9 run on the int8 tensor cores. The kernel
+GEMM that K5, K8 and K9 run on the int8 tensor cores (K1's wgmma
+correlation has its own model, tests/test_torch_corr_wgmma.py). The kernel
 itself runs only on the card (tests/test_torch_cuda.py holds it there);
 this model lets the band limits, paddings and fragment layouts be checked
 on the CPU.

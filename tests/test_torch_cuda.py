@@ -155,7 +155,7 @@ def test_propagate_and_match_kernels_equal_plain(case):
                   (256, 256, 128, 129), (250, 256, 128, 192),
                   (120, 200, 40, 141)):
         assert lib.meterelf_frontend_smem_bytes(*shape) == \
-            frontend.smem_bytes(*shape)
+            frontend.k1_smem_bytes(*shape)
 
 
 def test_variant_kernels_equal_plain(case):
@@ -381,6 +381,40 @@ def test_correlation_kernels_equal_plain(case, name, fill):
         (n8 + 1, n9 + 1)
 
 
+# (H, W, th, tw) of K1's wgmma correlation: one x tile (ow = 63, 64) and
+# two (65, 128); oh at a multiple of 8 and one past it; th = 64 and 136,
+# tw = 64 and 256 (n = 16 ceil(oh / 16) from 128 to 208)
+K1_GEOMS = {
+    "ow63": (250, 250, 119, 188),
+    "ow64": (250, 251, 119, 188),
+    "ow65": (250, 252, 119, 188),
+    "ow128": (256, 256, 64, 129),
+    "oh128": (191, 191, 64, 64),
+    "oh129": (192, 191, 64, 64),
+    "th136": (256, 250, 136, 188),
+    "tw256": (256, 256, 136, 256),
+}
+
+
+@pytest.mark.parametrize("fill", ["random", "0_0", "255_255", "0_255"])
+@pytest.mark.parametrize("name", sorted(K1_GEOMS))
+def test_k1_wgmma_equals_plain(case, name, fill):
+    """K1's warpgroup-product correlation bit-equal to frontend_plain
+    (max_val bytes, mx, my) across its x tiles, y widths and template
+    sizes; the constant fills tie every offset, so the first maximum in
+    row-major order is what they check."""
+    dev = case[0].device
+    packed, tmpl, tmpl_np = _corr_inputs(K1_GEOMS[name], fill, dev)
+    c1, c0 = frontend.score_constants(tmpl_np)
+    n1 = frontend.frontend.launches
+    got = frontend.frontend(packed, tmpl, c1, c0)
+    ref = frontend.frontend_plain(packed, tmpl, c1, c0)
+    torch.cuda.synchronize()
+    assert got[0].cpu().numpy().tobytes() == ref[0].cpu().numpy().tobytes()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    assert frontend.frontend.launches == n1 + 1
+
+
 def _equal_results(a, b):
     for f in a._fields:
         x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
@@ -467,7 +501,7 @@ def test_wrappers_refuse_bad_inputs(case, dev):
                           dec.param_arrays.template_u8, 0.0, 0.0)
     with pytest.raises(ValueError):
         ccl.ccl(torch.zeros((2, 32, 32), dtype=torch.int32, device=dev))
-    with pytest.raises(ValueError):   # needs more shared memory than a block
+    with pytest.raises(ValueError):   # a crop past K1's 256 x 256
         frontend.frontend(
             torch.zeros((1, 1024, 1024), dtype=torch.int32, device=dev),
             torch.zeros((119, 188), dtype=torch.uint8, device=dev), 0.0, 0.0)
