@@ -32,6 +32,7 @@ kernel with its plain version and its tests, as K9 in ops/match.py.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -194,10 +195,12 @@ def k1_smem_bytes(H: int, W: int, th: int, tw: int) -> int:
     return k1_layout(H, W, th, tw).bytes
 
 
+@functools.lru_cache(maxsize=256)
 def frontend_ok(crop_h: int, crop_w: int, th: int, tw: int) -> bool:
     """The frontend branches' gate: the JAX package's, and K1's layout
     within a block's shared memory (never the binding condition inside
-    the JAX gate: its largest geometries take 221,184 B)."""
+    the JAX gate: its largest geometries take 221,184 B). Kept a
+    geometry: the decode asks it every batch."""
     if not fits(crop_h, crop_w, th, tw):
         return False
     nbytes = k1_smem_bytes(crop_h, crop_w, th, tw)

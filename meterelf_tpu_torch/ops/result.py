@@ -11,16 +11,20 @@ The ten fields lie in one contiguous byte buffer, in BatchResult's order,
 each with its own dtype and shape, each starting on a multiple of 8 bytes
 (``layout``: the offsets depend on (B, D) alone); each field is a typed
 view of that buffer, so the result reaches the host in one copy
-(pipeline/decode.py to_host_later). On the CPU ``result_pack`` runs the
-plain torch version (``result_pack_plain``) into the same layout; on the
-card K13 (csrc/result.cu) writes it in one launch, bit-equal to the plain
+(pipeline/decode.py to_host_later). ``recipe`` keeps each field's
+place in a (B, D) buffer once, for the views on the device (``views``,
+``copied``) and in numpy; ``packed_recipe`` recognises such views. On
+the CPU ``result_pack`` runs the plain torch version
+(``result_pack_plain``) into the same layout; on the card K13
+(csrc/result.cu) writes it in one launch, bit-equal to the plain
 version run on the card.
 """
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -57,6 +61,32 @@ def layout(B: int, D: int) -> Tuple[Layout, int]:
     return tuple(out), off
 
 
+class Field(NamedTuple):
+    """One field of ``layout(B, D)``: its byte offset, dtype and numpy
+    dtype, shape and strides (C order, in elements)."""
+    offset: int
+    dtype: torch.dtype
+    np_dtype: np.dtype
+    shape: Tuple[int, ...]
+    strides: Tuple[int, ...]
+
+
+class Recipe(NamedTuple):
+    """``layout(B, D)`` as the views of one buffer take it."""
+    fields: Tuple[Field, ...]
+    nbytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def recipe(B: int, D: int) -> Recipe:
+    """The Recipe of ``layout(B, D)``."""
+    fields, nbytes = layout(B, D)
+    return Recipe(tuple(
+        Field(off, dtype, torch.empty(0, dtype=dtype).numpy().dtype, shape,
+              (shape[1], 1) if len(shape) == 2 else (1,))
+        for off, dtype, shape in fields), nbytes)
+
+
 def packed(B: int, D: int, device: torch.device
            ) -> Tuple[torch.Tensor, ...]:
     """The ten typed views of a fresh buffer for B rows of D dials."""
@@ -66,22 +96,52 @@ def packed(B: int, D: int, device: torch.device
 
 def views(buf: torch.Tensor, B: int, D: int) -> Tuple[torch.Tensor, ...]:
     """The ten typed views of ``buf``, a u8 buffer of ``layout(B, D)``'s
-    size."""
-    fields, _ = layout(B, D)
-    # one typed base a dtype, then one view a field
-    bases = {dtype: buf.view(dtype) for dtype in {d for _, d, _ in fields}}
-    return tuple(
-        bases[dtype].as_strided(shape, (D, 1) if len(shape) == 2 else (1,),
-                                off // dtype.itemsize)
-        for off, dtype, shape in fields)
+    size: one typed base a dtype, then one view a field."""
+    fields = recipe(B, D).fields
+    bases = {dtype: buf.view(dtype) for dtype in {f.dtype for f in fields}}
+    return tuple(bases[f.dtype].as_strided(f.shape, f.strides,
+                                           f.offset // f.dtype.itemsize)
+                 for f in fields)
 
 
-def copied(fields: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-    """The ten typed views of a fresh copy of the buffer whose views
-    ``fields`` are (as ``packed`` lays them): one copy on its device."""
-    B, D = fields[6].shape      # dial_pos
-    buf = torch.empty(0, dtype=torch.uint8, device=fields[0].device)
-    return views(buf.set_(fields[0].untyped_storage()).clone(), B, D)
+def buffer_of(fields: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The whole u8 buffer whose views ``fields`` are (as ``packed`` lays
+    them)."""
+    return torch.empty(0, dtype=torch.uint8, device=fields[0].device).set_(
+        fields[0].untyped_storage())
+
+
+def copied(buf: torch.Tensor, B: int, D: int) -> Tuple[torch.Tensor, ...]:
+    """The ten typed views of a fresh copy of ``buf``, a u8 buffer of
+    ``layout(B, D)``'s size: one copy on its device."""
+    out = torch.empty(buf.shape, dtype=torch.uint8, device=buf.device)
+    out.copy_(buf)
+    return views(out, B, D)
+
+
+def packed_recipe(fields: Sequence[Any]) -> Optional[Recipe]:
+    """The Recipe of ``fields`` when they are the ten views of one buffer
+    as ``packed`` lays them (K13's result, or a copy by ``copied``), else
+    None. Each field is checked at its address, dtype, shape and strides
+    against the recipe, and the first field's storage is the buffer (two
+    live allocations never overlap: a field at an address inside it lies
+    in it)."""
+    if len(fields) != len(FIELDS):
+        return None
+    try:
+        B, D = fields[6].shape          # dial_pos
+        r = recipe(B, D)
+        p0 = fields[0].data_ptr()
+        if any(t.data_ptr() - p0 != f.offset or t.dtype != f.dtype
+               or t.shape != f.shape or t.stride() != f.strides
+               for t, f in zip(fields, r.fields)):
+            return None
+    except (AttributeError, TypeError, ValueError):
+        return None                     # not tensors, or not [B, D]
+    storage = fields[0].untyped_storage()
+    if storage.data_ptr() != p0 or storage.nbytes() != r.nbytes:
+        return None
+    return r
 
 
 def error_codes(load_ok: torch.Tensor, match_ok: torch.Tensor,

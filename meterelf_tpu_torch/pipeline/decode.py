@@ -67,7 +67,6 @@ under an active torch.profiler, a shared no-op otherwise.
 """
 from __future__ import annotations
 
-import functools
 from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
                     Tuple)
 
@@ -84,7 +83,7 @@ from ..ops.components import RESCUE_CAPS, StatsBox
 from ..ops.frontend import frontend, frontend_ok, locate, score_constants
 from ..ops.jpeg_tail import backhalf_blocks, backhalf_planes
 from ..ops.jpegdec import CoefWindow, coef_window
-from ..ops.result import copied, result_pack
+from ..ops.result import buffer_of, copied, packed_recipe, result_pack
 from ..ops.stats import stats
 from ..ops.windows import windows
 from . import graphs
@@ -164,7 +163,8 @@ class MeterDecoder:
             static_crop_hw=(h, w),
             static_bbox=_stats_bbox(np.asarray(host.mask_full)),
         )
-        # decode graphs (graph_crops), by id of the crops buffer they read
+        # decode graphs (graph_crops), by id of the crops buffer they read;
+        # a replay returns the whole u8 buffer of K13's result
         self._graphs: Dict[int, graphs.Graph] = {}
 
     def _packed(self, crops: Any) -> torch.Tensor:
@@ -191,7 +191,8 @@ class MeterDecoder:
         g = self._graphs.get(id(crops))
         if (g is not None and caps is None and g.args[0] is crops
                 and g.args[1] is load_ok):
-            return BatchResult(*copied(g.replay()))
+            return BatchResult(*copied(g.replay(), crops.shape[0],
+                                       len(self.geom)))
         return self._decode(crops, load_ok, caps)
 
     def _decode(self, crops: Any, load_ok: Any,
@@ -213,7 +214,8 @@ class MeterDecoder:
         (make_coef_decode_fn)."""
         if id(crops) not in self._graphs:
             self._graphs[id(crops)] = graphs.Graph(
-                self.device, functools.partial(self._decode, caps=None),
+                self.device,
+                lambda c, ok: buffer_of(self._decode(c, ok, None)),
                 (crops, load_ok))
 
     def __call__(self, crops: Any, load_ok: Any = None) -> BatchResult:
@@ -393,7 +395,8 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
         del pa
         g = None
         with span("meterelf.step.backhalf"):
-            cy = torch.as_tensor(cy)
+            if not torch.is_tensor(cy):   # as_tensor of one is an aten::to
+                cy = torch.as_tensor(cy)
             B = cy.shape[0]
             on_planes = planes(cy)
             slots = _slots(fb_idx, B)
@@ -418,28 +421,32 @@ def make_coef_decode_fn(dec: MeterDecoder, frame_wh: Tuple[int, int]
     return step, win, pad_hw
 
 
-def _slots(fb_idx: Any, B: int
-           ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """The fallback slots that land in a batch of B rows: (row index,
-    kept) on the host, or None when no slot is kept. The choice runs on
-    the host (the feed's fb_idx is numpy): no device sync, and unused
-    slots never cross to the device."""
-    idx = torch.as_tensor(fb_idx).cpu().to(torch.int64)
-    idx = torch.where(idx < 0, idx + B, idx)
-    keep = (idx >= 0) & (idx < B)
-    if not bool(keep.any()):
+def _slots(fb_idx: Any, B: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The fallback slots that land in a batch of B rows, those with -B <=
+    fb_idx[j] < B: (the rows they overwrite, a negative index counting
+    from the end; the slots j), int64 numpy, or None when no slot is
+    kept. The choice runs in numpy on the host (the feed's fb_idx is
+    numpy): no device sync, and unused slots never cross to the
+    device."""
+    idx = (fb_idx.cpu().numpy() if torch.is_tensor(fb_idx)
+           else np.asarray(fb_idx))
+    keep = (idx >= -B) & (idx < B)
+    if not keep.any():
         return None
-    count("fallback_rows", int(keep.sum()))
-    return idx, keep
+    kept = np.flatnonzero(keep)
+    rows = idx[kept].astype(np.int64)
+    rows[rows < 0] += B
+    count("fallback_rows", len(kept))
+    return rows, kept
 
 
-def _scatter(packed: torch.Tensor, fb_packed: Any, idx: torch.Tensor,
-             keep: torch.Tensor) -> None:
-    """Write the kept fallback rows of ``fb_packed`` over their rows of
-    the crops ``packed``."""
+def _scatter(packed: torch.Tensor, fb_packed: Any, rows: np.ndarray,
+             kept: np.ndarray) -> None:
+    """Write the kept fallback slots ``kept`` of ``fb_packed`` over the
+    rows ``rows`` of the crops ``packed``."""
     fb = torch.as_tensor(fb_packed)
-    rows = fb[keep.to(fb.device)].to(torch.int32)
-    packed[upload(idx[keep], packed.device)] = upload(rows, packed.device)
+    src = fb[upload(kept, fb.device)].to(torch.int32)
+    packed[upload(rows, packed.device)] = upload(src, packed.device)
 
 
 def upload(a: Any, dev: torch.device) -> torch.Tensor:
@@ -458,81 +465,49 @@ def to_host_later(res: Any) -> Callable[[], Any]:
     returns a function that waits for those copies alone and gives every
     field as numpy.
 
-    When every CUDA tensor of ``res`` is a view of one storage (the
-    decode's packed BatchResult, ops/result.py), that storage is copied
-    once into a fresh pinned buffer and those fields are numpy views of
-    it at the tensors' own offsets and strides; a fresh buffer a call, so
-    that arrays a caller keeps stay valid. Otherwise each tensor is
-    copied on its own."""
+    A decode's packed BatchResult on a card (ten views of one buffer as
+    ops/result.packed lays them, ``packed_recipe``) is copied once into
+    a fresh pinned buffer, and its fields are numpy views of it from the
+    layout's recipe; a fresh buffer a call, so that arrays a caller keeps
+    stay valid. Otherwise each tensor is copied on its own."""
     with span("meterelf.result.copy"):
-        cuda = [v for v in res if torch.is_tensor(v) and v.is_cuda]
-        storage = _one_storage(cuda)
-        if storage is not None:
-            dev = cuda[0].device
-            whole = torch.empty(0, dtype=torch.uint8, device=dev).set_(
-                storage)
-            buf = torch.empty(storage.nbytes(), dtype=torch.uint8,
-                              pin_memory=True)
-            buf.copy_(whole, non_blocking=True)
-            host = [_HostView(v) if torch.is_tensor(v) and v.is_cuda
-                    else v for v in res]
+        r = packed_recipe(res) if res and _is_cuda(res[0]) else None
+        if r is not None:
+            buf = _pinned_bytes(r.nbytes)
+            buf.copy_(buffer_of(res), non_blocking=True)
+            host = None
+            dev = res[0].device
         else:
             buf = None
             host = [v.to("cpu", non_blocking=True) if torch.is_tensor(v)
                     else v for v in res]
+            dev = next((v.device for v in res if _is_cuda(v)), None)
         done = None
-        if cuda:
+        if dev is not None:
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(cuda[0].device))
+            done.record(torch.cuda.current_stream(dev))
 
     def fetch() -> Any:
         with span("meterelf.result.wait"):
             if done is not None:
                 done.synchronize()
-            raw = None if buf is None else buf.numpy()
-            return type(res)(*[
-                v.of(raw) if isinstance(v, _HostView)
-                else v.numpy() if torch.is_tensor(v) else np.asarray(v)
-                for v in host])
+            if buf is not None:
+                raw = buf.numpy()
+                return type(res)(*[np.ndarray(f.shape, f.np_dtype, raw,
+                                              f.offset) for f in r.fields])
+            return type(res)(*[v.numpy() if torch.is_tensor(v)
+                               else np.asarray(v) for v in host])
 
     return fetch
 
 
-def _one_storage(ts: Sequence[torch.Tensor]) -> Any:
-    """The untyped storage that every tensor of ``ts`` views, else None
-    (also for no tensors, or a dtype with no numpy twin)."""
-    if not ts or any(t.dtype not in _NUMPY for t in ts):
-        return None
-    st = ts[0].untyped_storage()
-    ptr = st.data_ptr()
-    if any(t.untyped_storage().data_ptr() != ptr for t in ts[1:]):
-        return None
-    return st
+def _is_cuda(v: Any) -> bool:
+    return torch.is_tensor(v) and v.is_cuda
 
 
-class _HostView:
-    """Where a CUDA tensor lies in its storage: ``of(raw)`` is the numpy
-    array at the same place in the storage's bytes ``raw``, copied to the
-    host."""
-    __slots__ = ("dtype", "shape", "strides", "offset")
-
-    def __init__(self, t: torch.Tensor) -> None:
-        size = t.itemsize
-        self.dtype = _NUMPY[t.dtype]
-        self.shape = t.shape
-        # None: C order
-        self.strides = (None if t.is_contiguous()
-                        else tuple(s * size for s in t.stride()))
-        self.offset = t.storage_offset() * size
-
-    def of(self, raw: np.ndarray) -> np.ndarray:
-        return np.ndarray(self.shape, self.dtype, raw, self.offset,
-                          self.strides)
-
-
-_NUMPY = {d: torch.empty(0, dtype=d).numpy().dtype
-          for d in (torch.bool, torch.uint8, torch.int32, torch.int64,
-                    torch.float32, torch.float64)}
+def _pinned_bytes(n: int) -> torch.Tensor:
+    """A fresh u8 buffer of ``n`` bytes in pinned host memory."""
+    return torch.empty(n, dtype=torch.uint8, pin_memory=True)
 
 
 def _to_numpy(res: Any) -> Any:

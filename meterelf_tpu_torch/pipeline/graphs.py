@@ -116,6 +116,11 @@ def _put(dst: torch.Tensor, src: torch.Tensor) -> None:
     dst.copy_(src, non_blocking=True)
 
 
+def _where(ts: Sequence[torch.Tensor]) -> tuple:
+    """Each tensor's address, shape, dtype and strides."""
+    return tuple((t.data_ptr(), t.shape, t.dtype, t.stride()) for t in ts)
+
+
 class StepGraphs:
     """The back-half graphs of one step on one device: ``place(inputs)``
     gives the Graph of ``tail(cy, cb, cr, qt, ok)`` that reads the step's
@@ -132,16 +137,20 @@ class StepGraphs:
         self._staged: Dict[tuple, Graph] = {}
 
     def place(self, inputs: Sequence[Any]) -> Graph:
-        ts = [torch.as_tensor(a) for a in inputs]
-        shape = tuple((tuple(t.shape), t.dtype) for t in ts)
-        if all(t.device == self.device for t in ts):
-            key = shape + tuple((t.data_ptr(), t.stride()) for t in ts)
+        if all(torch.is_tensor(a) and a.device == self.device
+               for a in inputs):
+            key = _where(inputs)
             g = self._in_place.get(key)
-            if g is None and self._n_in_place[shape] < BOUND:
-                g = self._in_place[key] = Graph(self.device, self._tail, ts)
-                self._n_in_place[shape] += 1
             if g is not None:
                 return g
+            shape = tuple((tuple(t.shape), t.dtype) for t in inputs)
+            if self._n_in_place[shape] < BOUND:
+                g = self._in_place[key] = Graph(self.device, self._tail,
+                                                list(inputs))
+                self._n_in_place[shape] += 1
+                return g
+        ts = [torch.as_tensor(a) for a in inputs]
+        shape = tuple((tuple(t.shape), t.dtype) for t in ts)
         g = self._staged.get(shape)
         if g is None:
             g = self._staged[shape] = Graph(

@@ -451,7 +451,7 @@ def test_to_host_later_one_copy_keeps_arrays(dev, crops):
     dec = MeterDecoder(CAMERAS["default"].make_params(), device=dev)
     batch = crops("default")[:64]
     res = dec(batch)
-    assert decode_mod._one_storage(list(res)) is not None
+    assert result.packed_recipe(res) is result.recipe(64, 4)
     kept = to_host_later(res)()
     loose = to_host_later(BatchResult(*(v.clone() for v in res)))()
     assert type(kept) is type(loose) is BatchResult

@@ -146,6 +146,38 @@ def test_graph_step_with_fallback_slots(dev):
         _same_bits(g, want, f"fallback call {i}")
 
 
+def test_graph_step_slots_come_and_go(dev, feed):
+    """One step on one feed on the card, its fb_idx keeping no slot, then
+    five (a negative index among them) beside three out of range either
+    side, then none again: the two graphs are captured once and replayed
+    every call, each result equals the eager stages bit for bit,
+    fallback_rows counts the kept slots alone, the kept slots change the
+    result, and the arrays of every call stay as they were read."""
+    dec, step, win, pad_hw = _step(dev)
+    host = _cut(feed, B)
+    inputs = _on(dev, host)[:5]
+    crops = jpeg_tail.backhalf_planes(*inputs[:4], win, pad_hw)
+    fb_packed = np.ascontiguousarray(
+        crops.cpu().numpy()[[3, 50, 99, 140, 7, 8, 9, 10]])
+    none = np.full(8, B, np.int32)
+    some = np.array([10, -1, B + 5, 200, -B - 1, B, 1, -B], np.int32)
+    c0 = _counters()
+    got = []
+    for label, fb_idx, n in (("none", none, 0), ("some", some, 5),
+                             ("none again", none, 0)):
+        rows0 = counts().get("fallback_rows", 0)
+        res = to_host_later(step(None, *inputs, fb_packed, fb_idx))()
+        assert counts().get("fallback_rows", 0) - rows0 == n, label
+        want = _eager(dec, win, pad_hw, host[:5] + [fb_packed, fb_idx])
+        _same_bits(res, want, label)
+        got.append((res, [np.array(v) for v in res]))
+    assert list(_counters() - c0) == [2, 6, 0]
+    assert (got[0][0].match_val != got[1][0].match_val).any()
+    _same_bits(got[0][0], got[2][0], "none, then none again")
+    for k, (res, copy) in enumerate(got):
+        _same_bits(res, type(res)(*copy), f"call {k}'s arrays")
+
+
 def test_device_feeds_past_the_bound_are_staged(dev, feed):
     """BOUND + 1 distinct feeds on the card: the first BOUND each capture
     a back-half graph that reads them in place and a decode graph, the
@@ -179,7 +211,7 @@ def test_device_feeds_past_the_bound_are_staged(dev, feed):
     torch.cuda.synchronize()
     _same_bits(to_host_later(held)(), first, "held result")
     assert held.err.untyped_storage().data_ptr() not in {
-        g.out[0].untyped_storage().data_ptr() for g in dec._graphs.values()}
+        g.out.untyped_storage().data_ptr() for g in dec._graphs.values()}
 
 
 @pytest.mark.parametrize("branch", ["five_dial", "scorer_only", "block",

@@ -3,7 +3,9 @@ the step on the CPU captures nothing; ``StepGraphs``'s placement, its key
 and its bound, held as plain Python with ``Graph`` stubbed; ``Graph``'s
 capture, launch counting and the decoder's replay of its crops, with
 torch.cuda's graph API stubbed. tests/test_torch_cuda_graph.py holds the
-graphs themselves on the card."""
+graphs themselves on the card; and the step's host glue around them:
+the placement of the same tensors changed in place, the slot choice in
+numpy."""
 import contextlib
 from types import SimpleNamespace
 
@@ -15,6 +17,7 @@ from meterelf_tpu_torch import synthetic
 from meterelf_tpu_torch.io import jpeg as tio
 from meterelf_tpu_torch.ops import jpeg_tail, launch, result
 from meterelf_tpu_torch.ops.components import RESCUE_CAPS
+from meterelf_tpu_torch.pipeline import decode as decode_mod
 from meterelf_tpu_torch.pipeline import graphs
 from meterelf_tpu_torch.pipeline.decode import (MeterDecoder,
                                                 make_coef_decode_fn)
@@ -144,6 +147,81 @@ def test_bound_then_staging(stub, monkeypatch, bound):
     assert len(stub.made) == bound + 1
     other = sg.place(_inputs(B=5))
     assert other is not g and len(stub.made) == bound + 2
+
+
+@pytest.mark.parametrize("kind,hit", [
+    ("same", True), ("other_tensor", False), ("other_storage", False),
+    ("other_stride", False), ("other_shape", False)])
+def test_placement_of_the_same_tensors(stub, kind, hit):
+    """The tensors of an in-place graph, handed again as they were, find
+    it (as does a new view of the same memory); a tensor swapped for
+    another, or one whose storage, strides or shape changed in place
+    (the same Python object), misses it and gets a graph on the inputs
+    as they are now, found again after."""
+    sg = graphs.StepGraphs(CPU, None)
+    ts = _inputs()
+    first = sg.place(ts)
+    assert sg.place(ts) is first and sg.place(_edit("same_view", ts)) is first
+    assert len(stub.made) == 1
+    again = list(ts)
+    cy = ts[0]
+    if kind == "other_tensor":
+        again[0] = cy.clone()
+    elif kind == "other_storage":
+        cy.set_(cy.clone())
+    elif kind == "other_stride":
+        cy.set_(cy.untyped_storage(), 0, cy.shape, (1, 24, 3))
+    elif kind == "other_shape":
+        cy.set_(cy.untyped_storage(), 0, (2,) + cy.shape[1:], cy.stride())
+    second = sg.place(again)
+    assert (second is first) == hit
+    assert len(stub.made) == (1 if hit else 2)
+    if not hit:
+        assert all(a is b for a, b in zip(stub.made[-1], again))
+        assert sg.place(again) is second and len(stub.made) == 2
+
+
+def _slots_torch(fb_idx, B):
+    """The slot choice as host torch ops: (every slot's row, a negative
+    index counting from the end; the kept mask), or None."""
+    idx = torch.as_tensor(fb_idx).cpu().to(torch.int64)
+    idx = torch.where(idx < 0, idx + B, idx)
+    keep = (idx >= 0) & (idx < B)
+    if not bool(keep.any()):
+        return None
+    return idx, keep
+
+
+@pytest.mark.parametrize("fb_idx", [
+    [8, 8, 8, 8], [-1, 8, 8, 8], [-8, -9, 3, 8], [9, 100, -9, -100],
+    [], [0, 7, -3, 8, 12, -8, 5, -20], np.arange(-10, 10)],
+    ids=["unused", "negative", "edges", "all_dropped", "empty", "mixed",
+         "range"])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_slots_choose_as_the_torch_choice(fb_idx, as_tensor):
+    """_slots in numpy, for B = 8 rows: None where the torch choice keeps
+    no slot; else the kept slots' rows and the rows of fb_packed they
+    write, in the torch choice's order, and fallback_rows counts the kept
+    slots alone. The scatter writes those rows."""
+    B = 8
+    idx = np.asarray(fb_idx, np.int32)
+    fb = np.arange(len(idx) * 3, dtype=np.int32).reshape(len(idx), 1, 3)
+    want = _slots_torch(idx, B)
+    rows0 = _counter("fallback_rows")
+    got = decode_mod._slots(torch.as_tensor(idx) if as_tensor else idx, B)
+    if want is None:
+        assert got is None and _counter("fallback_rows") == rows0
+        return
+    rows, kept = got
+    assert rows.dtype == kept.dtype == np.int64
+    np.testing.assert_array_equal(rows, want[0][want[1]].numpy())
+    np.testing.assert_array_equal(fb[kept], fb[want[1].numpy()])
+    assert _counter("fallback_rows") - rows0 == int(want[1].sum())
+    crops = torch.full((B, 1, 3), -1, dtype=torch.int32)
+    decode_mod._scatter(crops, fb, *got)
+    old = torch.full((B, 1, 3), -1, dtype=torch.int32)
+    old[want[0][want[1]]] = torch.as_tensor(fb)[want[1]]
+    assert torch.equal(crops, old)
 
 
 def test_inputs_off_the_device_are_staged(stub):
@@ -276,7 +354,8 @@ def test_decoder_replays_the_graph_of_its_graph_crops(fake_cuda, feed):
     assert [_counter("step_graph_captures") - c0[0],
             _counter("step_graph_replays") - c0[1]] == [1, 2]
     (g,) = dec._graphs.values()
-    bufs = {g.out[0].untyped_storage().data_ptr()}
+    assert g.out.dtype == torch.uint8 and g.out.dim() == 1
+    bufs = {g.out.data_ptr()}
     for r in got:
         for f in r._fields:
             assert torch.equal(getattr(r, f), getattr(want, f)), f
@@ -302,12 +381,14 @@ def test_views_equal_packed_layout():
 
 def test_copied_is_a_fresh_copy_of_the_buffer():
     """result.copied gives the ten fields as views of a new buffer that
-    holds the same bytes, laid out as the fields it copies."""
+    holds the same bytes, laid out as the fields of the buffer it
+    copies."""
     n = result.layout(5, 4)[1]
     buf = torch.randint(0, 256, (n,), dtype=torch.uint8,
                         generator=torch.Generator().manual_seed(3))
     a = result.views(buf, 5, 4)
-    b = result.copied(a)
+    assert result.buffer_of(a).data_ptr() == buf.data_ptr()
+    b = result.copied(buf, 5, 4)
     new = b[0].untyped_storage()
     assert new.data_ptr() != buf.data_ptr() and new.nbytes() == n
     assert torch.equal(torch.empty(0, dtype=torch.uint8).set_(new), buf)

@@ -4,7 +4,8 @@ converged reduction field by field (tests/result_cases.py: seeded rows
 and hand-made rows reaching every error code and the edges of the match
 test), into one buffer whose layout depends on (B, D) alone; every
 branch of the decode returns such a packed BatchResult; and
-to_host_later's numpy is the same for a packed and an unpacked result."""
+to_host_later's numpy is the same for a packed and an unpacked result,
+its card path run here with the card stubbed (``fake_card``)."""
 import numpy as np
 import pytest
 import torch
@@ -143,38 +144,113 @@ def test_decode_returns_packed_result(branch):
                         [t.numpy() for t in res], branch)
 
 
-def test_to_host_later_packed_and_unpacked_equal():
+class FakeEvent:
+    def record(self, stream=None):
+        pass
+
+    def synchronize(self):
+        pass
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """to_host_later's card path on the CPU: every tensor counts as on a
+    card, the pinned buffers are plain ones (each kept in the list
+    returned) and the event is a stand-in."""
+    made = []
+
+    def pinned(n):
+        made.append(torch.empty(n, dtype=torch.uint8))
+        return made[-1]
+
+    monkeypatch.setattr(decode, "_is_cuda", torch.is_tensor)
+    monkeypatch.setattr(decode, "_pinned_bytes", pinned)
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: None)
+    return made
+
+
+@pytest.mark.parametrize("B,D", [(11, 4), (7, 5), (64, 4)])
+def test_to_host_later_packed_and_unpacked_equal(fake_card, B, D):
     """A packed result and the same fields as separate tensors give the
-    same numpy from to_host_later: types, dtypes, shapes and values."""
-    res = BatchResult(*pack(result_cases.cases(11, 4, 5)))
+    same numpy from to_host_later: types, dtypes, shapes and values; the
+    packed one through one buffer of the layout's size, its fields views
+    of that buffer from the recipe, the separate ones through none."""
+    res = BatchResult(*pack(result_cases.cases(B, D, 5)))
     loose = BatchResult(*(t.clone() for t in res))
-    assert decode._one_storage(list(res)) is not None
-    assert decode._one_storage(list(loose)) is None
-    a, b = to_host_later(res)(), to_host_later(loose)()
+    assert result.packed_recipe(res) is result.recipe(B, D)
+    assert result.packed_recipe(loose) is None
+    a = to_host_later(res)()
+    (buf,) = fake_card
+    assert buf.numel() == result.layout(B, D)[1]
+    b = to_host_later(loose)()
+    assert len(fake_card) == 1
     assert type(a) is type(b) is BatchResult
     assert all(isinstance(v, np.ndarray) for v in a)
     assert_fields_equal(a, b, "packed vs unpacked")
+    assert all(np.shares_memory(v, buf.numpy()) for v in a)
+
+
+def test_kept_arrays_survive_the_next_call(fake_card):
+    """The decoder's graph path: one device buffer rewritten between
+    calls, each call's result a fresh copy of it (result.copied) pulled
+    by to_host_later. The arrays of call k are unchanged after call k + 1
+    and equal what call k's buffer held: each call has its own host
+    buffer."""
+    B, D = 9, 4
+    src = torch.empty(result.layout(B, D)[1], dtype=torch.uint8)
+    kept = []
+    for seed in range(3):
+        for o, v in zip(result.views(src, B, D),
+                        pack(result_cases.cases(B, D, seed))):
+            o.copy_(v)
+        res = BatchResult(*result.copied(src, B, D))
+        want = [t.numpy().copy() for t in res]
+        kept.append((to_host_later(res)(), want))
+    assert len({b.data_ptr() for b in fake_card}) == 3
+    for k, (got, want) in enumerate(kept):
+        assert_fields_equal(got, want, f"call {k}")
+    assert not np.array_equal(kept[0][0].dial_pos, kept[1][0].dial_pos)
 
 
 @pytest.mark.parametrize("B,D", [(0, 4), (7, 5), (64, 4)])
 def test_host_views_of_copied_bytes(B, D):
-    """The numpy views to_host_later builds over a packed result's copied
-    bytes equal each field's own numpy, also for a view with an offset
-    and a stride."""
+    """The numpy views of the recipe over a packed result's copied bytes
+    equal each field's own numpy; a result with a field swapped for
+    another view of the same buffer (an offset and a stride) is not taken
+    for a packed one, and to_host_later copies its fields one by one."""
     res = BatchResult(*pack(result_cases.cases(B, D, 6)))
-    storage = decode._one_storage(list(res))
-    raw = torch.empty(0, dtype=torch.uint8).set_(storage).numpy().copy()
-    got = [decode._HostView(t).of(raw) for t in res]
+    raw = result.buffer_of(res).numpy().copy()
+    r = result.packed_recipe(res)
+    got = [np.ndarray(f.shape, f.np_dtype, raw, f.offset) for f in r.fields]
     assert_fields_equal(got, [t.numpy() for t in res], f"B={B} D={D}")
     if B:
         col = res.dial_pos[:, 1]
-        np.testing.assert_array_equal(decode._HostView(col).of(raw),
+        odd = res._replace(dial_pos=col)
+        assert result.packed_recipe(odd) is None
+        np.testing.assert_array_equal(to_host_later(odd)().dial_pos,
                                       col.numpy())
 
 
 def test_one_storage_needs_every_tensor():
-    x = torch.zeros(8, dtype=torch.int32)
-    assert decode._one_storage([]) is None
-    assert decode._one_storage([x[:4], x[4:]]) is not None
-    assert decode._one_storage([x[:4], x[4:].clone()]) is None
-    assert decode._one_storage([x.view(torch.complex64)]) is None
+    """packed_recipe takes the ten views of one buffer of the layout's
+    size at the layout's places, and nothing else: no fields, a field
+    copied elsewhere, a field of another dtype or shape, numpy fields,
+    views of a larger buffer, a short tuple."""
+    res = pack(result_cases.cases(6, 4, 7))
+    assert result.packed_recipe(res) is result.recipe(6, 4)
+    assert result.packed_recipe([]) is None
+    assert result.packed_recipe(res[:9]) is None
+    for i in range(10):
+        other = list(res)
+        other[i] = res[i].clone()
+        assert result.packed_recipe(other) is None, i
+    other = list(res)
+    other[4] = res[4].view(torch.float32)
+    assert result.packed_recipe(other) is None
+    other = list(res)
+    other[0] = res[0][:3]
+    assert result.packed_recipe(other) is None
+    assert result.packed_recipe([t.numpy() for t in res]) is None
+    big = torch.zeros(result.layout(6, 4)[1] + 8, dtype=torch.uint8)
+    assert result.packed_recipe(result.views(big, 6, 4)) is None
