@@ -32,7 +32,9 @@ ports of tests/test_tpu_fuzz.py's:
   sort finalize), the hand-made windows of tests/readout_windows.py,
   rendered crops on the value's carry edges, and slot counts that pad
   tree_sum at the first level, at the second or not at all, equal and
-  unequal between the disk and the annulus;
+  unequal between the disk and the annulus; the hand-made windows and
+  the slot counts also at 1, 3, 5 and 8 dials an image, so that each
+  dial takes from 16 down to 2 warps;
 - K13 result_pack against the plain result stage
   (ops/result.result_pack_plain) on the card and the reference's raise
   order, bit for bit: the seeded and hand-made rows of
@@ -276,14 +278,26 @@ def test_readout_fuzz_windows_equal_plain(dev, crops, cam, gather, exact):
     assert readable.any()
 
 
+def dial_subset(pa, dials):
+    """pa's angle geometry for the windows of ``dials`` (dial indices,
+    repeats allowed); value_perm kept (read only where D == 4)."""
+    pick = torch.as_tensor(dials, device=pa.disk_idx.device)
+    return pa._replace(**{k: getattr(pa, k)[pick].contiguous()
+                          for k in pa._fields
+                          if k.startswith(("disk_", "ann_"))
+                          or k in ("neg_sign", "zero_turn")})
+
+
+@pytest.mark.parametrize("D", [None, 1, 3, 5, 8])
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("gather", ["okey3", "region"])
 @pytest.mark.parametrize("cam", sorted(CAMERAS))
-def test_readout_hand_windows_equal_plain(dev, cam, gather, exact):
+def test_readout_hand_windows_equal_plain(dev, cam, gather, exact, D):
     """The hand-made windows (no needle, den = 0; n = 1..6 across the
     trim's cut steps; the 0.75-turn tail; the whole annulus; keymax -1,
-    small and big blobs): K12 equals the plain stage on the card, bit for
-    bit."""
+    small and big blobs), with the camera's dials (D None) or its dials
+    repeated or cut to D windows an image: K12 equals the plain stage on
+    the card, bit for bit."""
     dec = readout_decoder(dev, cam, exact)
     host = dec.params.arrays()
     if not exact:
@@ -295,10 +309,17 @@ def test_readout_hand_windows_equal_plain(dev, cam, gather, exact):
         src, km = okey3, keymax
     else:
         src, km = region, None
+    pa = dec.param_arrays
+    if D is not None:
+        dials = [i % src.shape[1] for i in range(D)]
+        src = src[:, dials]
+        km = None if km is None else km[:, dials]
+        pa = dial_subset(pa, dials)
     assert_readout_equals_plain(
-        torch.as_tensor(src).to(dev),
-        None if km is None else torch.as_tensor(km).to(dev),
-        dec.param_arrays, f"{cam} {gather} exact={exact}")
+        torch.as_tensor(np.ascontiguousarray(src)).to(dev),
+        None if km is None else torch.as_tensor(
+            np.ascontiguousarray(km)).to(dev),
+        pa, f"{cam} {gather} exact={exact} D={D}")
 
 
 @pytest.mark.parametrize("exact", [True, False])
@@ -316,18 +337,29 @@ def test_readout_carry_edges_equal_plain(dev, cam, exact):
         assert readable.all()
 
 
-@pytest.mark.parametrize("disk,ann", [(20, 20), (1000, 1000), (1280, 1280),
-                                      (4096, 4096), (20, 40), (1000, 33)])
-def test_readout_slot_counts_equal_plain(dev, crops, disk, ann):
+SLOT_COUNTS = [(1, 1), (20, 20), (32, 32), (33, 33), (1000, 1000),
+               (1280, 1280), (1536, 1536), (4096, 4096), (20, 40),
+               (1000, 33), (1536, 1024), (33, 4096)]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("D", [1, 3, 4, 5, 8])
+@pytest.mark.parametrize("disk,ann", SLOT_COUNTS)
+def test_readout_slot_counts_equal_plain(dev, crops, disk, ann, D, exact):
     """The flagship's geometry cut (or padded with invalid slots) to
     ``disk`` disk and ``ann`` annulus slots a dial, so that tree_sum pads
     at the first level (1000: 8 zeros), only at the second (1280: 40
-    partials to 64), not at all (4096) or sums one short run (20); and
-    unequal counts, whose warps' shared buffers start at offsets that are
-    no multiple of 8 unless rounded (20 and 40: 60 bytes a warp): K12
-    equals the plain stage on the card, bit for bit, on both gathers."""
-    dec = readout_decoder(dev, "default", True)
-    pa = dec.param_arrays
+    partials to 64), not at all (1536, 4096) or sums one short run (1,
+    20, 32), or two runs (33); unequal counts, whose dials' shared
+    buffers start at offsets that are no multiple of 8 unless rounded;
+    and its dials repeated or cut to D windows an image, so that a dial
+    takes 16 / D warps (D = 1: 16, D = 8: 2, first-level runs more than
+    a dial's threads at 4096 slots; D = 3, 5: 15 warps a CTA), both
+    geometry dtypes: K12 equals the plain stage on the card, bit for
+    bit, on both gathers, the value too where D = 4."""
+    dec = readout_decoder(dev, "default", exact)
+    dials = [i % 4 for i in range(D)]
+    pa = dial_subset(dec.param_arrays, dials)
 
     def fit(t, slots):
         t = t[:, :slots]
@@ -340,8 +372,10 @@ def test_readout_slot_counts_equal_plain(dev, crops, disk, ann):
                         if k.startswith(("disk_", "ann_"))})
     for gather in ("okey3", "region"):
         src, keymax = window_inputs(dec, crops("default")[:64], gather)
-        assert_readout_equals_plain(src, keymax, pa,
-                                    f"{disk}/{ann} slots {gather}")
+        src = src[:, dials].contiguous()
+        keymax = None if keymax is None else keymax[:, dials].contiguous()
+        assert_readout_equals_plain(src, keymax, pa, f"{disk}/{ann} slots "
+                                    f"D={D} {gather} exact={exact}")
 
 
 # ------------------------------------------------------ K13 result_pack --

@@ -376,6 +376,13 @@ def _kept_counts(src, km, pa):
     """(n, k_tail): the kept and the tail annulus slots of each window [B,
     D] (the first half of _read_dial_core), to show which cases the
     hand-made windows reach."""
+    kept, tail = _kept_tail(src, km, pa)
+    return kept.sum(-1), tail.sum(-1)
+
+
+def _kept_tail(src, km, pa):
+    """(kept, tail) [B, D, n_ann] bool: the first half of
+    _read_dial_core."""
     if km is None:
         gather = functools.partial(t_angles.read_dials_region, src)
     else:
@@ -393,7 +400,7 @@ def _kept_counts(src, km, pa):
         amin = torch.where(kept, p.ann_angle, float("inf")).amin(
             -1, keepdim=True)
         tail = kept & ~(torch.abs(p.ann_angle - amin) < 0.75)
-        counts.append((kept.sum(-1).numpy(), tail.sum(-1).numpy()))
+        counts.append((kept.numpy(), tail.numpy()))
         return None, None
 
     orig = t_angles._read_dial_core
@@ -492,3 +499,158 @@ def test_readout_sum_order_is_tree_sum(n):
     got = t_angles.tree_sum(torch.as_tensor(x)).numpy()
     want = np.array([[_sequential_tree_sum(r) for r in row] for row in x])
     np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
+
+
+# K12 (csrc/angles.cu) spreads a window over the W = max(1, 16 // D) warps
+# of its dial: thread t of the dial's 32 W sums first-level runs t, t +
+# 32 W, ...; the kept words' prefix counts come from warp scans and warp
+# totals. The models below repeat that in Python.
+
+def _k12_warps(D):
+    return max(1, 16 // D)
+
+
+def _k12_tree_sum(x, on=None):
+    """K12's order for one row: first-level runs of 32 (evenly zero-padded
+    above one run), each summed from 0.0 on its own by one thread of the
+    dial, adding its terms that are ``on`` (every term where on is None)
+    in index order; the partials in run order, one more level of runs
+    (one a thread) above 32 of them, then the partials from 0.0 in order;
+    a single run is the sum. Which thread sums a run does not change it,
+    so the model has no warps."""
+    n = len(x)
+    one = n <= t_angles.RUN
+    lo = 0 if one else (-n % t_angles.RUN) // 2
+    runs = 1 if one else -(-n // t_angles.RUN)
+    part = []
+    for r in range(runs):
+        acc = 0.0
+        for j in range(t_angles.RUN):
+            k = r * t_angles.RUN + j - lo
+            if 0 <= k < n and (on is None or on[k]):
+                acc += x[k]
+        part.append(acc)
+    if one:
+        return part[0]
+    if runs > t_angles.RUN:
+        pad = -runs % t_angles.RUN
+        lo = pad // 2
+        up = []
+        for t in range(-(-runs // t_angles.RUN)):
+            acc = 0.0
+            for j in range(t_angles.RUN):
+                k = t * t_angles.RUN + j - lo
+                acc += part[k] if 0 <= k < runs else 0.0
+            up.append(acc)
+        part = up
+    acc = 0.0
+    for v in part:
+        acc += v
+    return acc
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("n", [1, 20, 32, 33, 256, 1000, 1024, 1280, 1536,
+                               4096])
+def test_readout_split_sum_is_tree_sum(n, skip):
+    """K12's tree_sum, its first-level runs summed one a thread, equals
+    the order spelled out one IEEE add at a time, bit for bit, signed
+    zeros included; with ``skip``, the kernel's sum of the terms on the
+    needle or in the trim alone does too, where the plain graph adds a
+    zero of either sign for each other slot."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((3, 2, n)) * 10.0 ** rng.integers(-8, 9,
+                                                               (3, 2, n))
+    x[0] = -0.0
+    x[1, :, ::3] = -0.0
+    off = rng.random((3, 2, n)) < 0.7
+    plain = np.where(off, np.where(rng.random((3, 2, n)) < 0.5, -0.0, 0.0),
+                     x)
+    for row, on in zip(plain.reshape(-1, n), ~off.reshape(-1, n)):
+        want = np.float64(_sequential_tree_sum(list(row))).view(np.uint64)
+        got = np.float64(_k12_tree_sum(list(row), on if skip else None))
+        assert got.view(np.uint64) == want
+
+
+def _words(bits):
+    """[Q] bool -> the ballot words (bit l of word c: slot 32c + l)."""
+    b = np.concatenate([bits, np.zeros(-len(bits) % 32, bool)])
+    return [int(sum(1 << i for i in np.nonzero(w)[0]))
+            for w in b.reshape(-1, 32)]
+
+
+def _run_bits(words, s0):
+    """csrc/angles.cu run_bits: bit j is slot s0 + j (s0 >= -31)."""
+    c, sh = s0 >> 5, s0 & 31
+    lo = words[c] if c >= 0 else 0
+    if sh == 0:
+        return lo
+    hi = words[c + 1] if c + 1 < len(words) else 0
+    return ((hi << 32 | lo) >> sh) & 0xffffffff
+
+
+def _popc(x):
+    return bin(x).count("1")
+
+
+def _k12_ranks(kept, tail, D):
+    """K12's n, k_tail and the inclusive rank - 1 of each kept slot of one
+    window: each kept word's prefix count from warp scans, 32 W words at
+    a time, warp totals summed in warp order; a run's first rank from
+    its first word's count and a masked popcount, then popcounts within
+    the run."""
+    W = _k12_warps(D)
+    threads = 32 * W
+    kw, tw = _words(kept), _words(tail)
+    na = len(kw)
+    pc = [0] * na
+    n = k_tail = 0
+    for c0 in range(0, na, threads):
+        cnt = [_popc(kw[c]) if c < na else 0 for c in range(c0, c0 + threads)]
+        tails = [_popc(tw[c]) if c < na else 0
+                 for c in range(c0, c0 + threads)]
+        total = [sum(cnt[32 * i:32 * i + 32]) for i in range(W)]
+        for t in range(threads):
+            w = t // 32
+            incl = sum(cnt[32 * w:t + 1])
+            if c0 + t < na:
+                pc[c0 + t] = n + sum(total[:w]) + incl - cnt[t]
+        n += sum(total)
+        k_tail += sum(tails)
+    q = len(kept)
+    lo = 0 if q <= 32 else (-q % 32) // 2
+    rank = {}
+    for r in range(1 if q <= 32 else na):
+        s0 = r * 32 - lo
+        kb = _run_bits(kw, s0)
+        rank0 = (pc[s0 >> 5] + _popc(kw[s0 >> 5] & ((1 << (s0 & 31)) - 1))
+                 if s0 > 0 else 0)
+        for j in range(32):
+            if kb >> j & 1:
+                rank[s0 + j] = rank0 + _popc(kb & ((2 << j) - 1)) - 1
+    return n, k_tail, rank
+
+
+@pytest.mark.parametrize("slots", [None, 4096])
+@pytest.mark.parametrize("D", [1, 3, 4, 5, 8])
+def test_readout_split_ranks_match_plain(D, slots):
+    """On the hand-made windows (okey3 gather; n = 0..6, the tail, the
+    whole annulus), the kept annulus slots padded with invalid slots to
+    ``slots`` (4096: more words than two warps' lanes): K12's cross-warp
+    prefix counts give each kept slot the rank of the plain graph's
+    cumulative sum, and n and k_tail its sums, for the warps a dial of D
+    takes."""
+    host, pa, _, okey3, keymax = _readout_case("five_dial")
+    kept, tail = _kept_tail(torch.as_tensor(okey3), torch.as_tensor(keymax),
+                            pa)
+    if slots is not None:
+        grow = ((0, 0), (0, 0), (0, slots - kept.shape[-1]))
+        kept, tail = np.pad(kept, grow), np.pad(tail, grow)
+    B, ND = kept.shape[:2]
+    for b in range(B):
+        for d in range(ND):
+            n, k_tail, rank = _k12_ranks(kept[b, d], tail[b, d], D)
+            assert (n, k_tail) == (kept[b, d].sum(), tail[b, d].sum())
+            want = np.cumsum(kept[b, d]) - 1
+            assert rank == {int(s): int(want[s])
+                            for s in np.nonzero(kept[b, d])[0]}
